@@ -1,0 +1,117 @@
+"""Model API of the port (port of ``repro.models.model``), dense family.
+
+    model_specs(cfg)            -> ParamSpec tree (single source of truth)
+    prefill(cfg, params, batch) -> (last_logits, cache) [inference-prefill]
+    decode_step(cfg, params, cache, token, pos)         [inference-decode]
+    cache_specs(cfg, batch, seq_len)
+
+The other families, and ``loss_fn``, raise or are absent until their ROADMAP
+items land.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import nn, transformer
+
+COMPUTE_DTYPE = torch.bfloat16
+
+_NOT_PORTED = {
+    "moe": "ROADMAP Queue 1 item 13 (MoE + MLA)",
+    "ssm": "ROADMAP Queue 1 item 11 (SSM family)",
+    "hybrid": "ROADMAP Queue 1 item 12 (hybrid family)",
+    "vlm": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
+    "audio": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
+}
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        if cfg.family in _NOT_PORTED:
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
+            )
+        raise ValueError(cfg.family)
+
+
+# --------------------------------------------------------------------------
+# specs
+# --------------------------------------------------------------------------
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _dense_only(cfg)
+    return transformer.lm_specs(cfg)
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Every parameter of a dense model is active, so ``active_only`` changes
+    nothing until the MoE family is ported."""
+    return nn.param_count(model_specs(cfg))
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+
+
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+
+
+def _head_weight(cfg: ModelConfig, params) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T  # (d, V)
+    return params["lm_head"]
+
+
+def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden: (..., d) -> f32 logits (..., V).  bf16 operands with an f32
+    result, never rounded to bf16: what XLA compiles ``einsum(...).astype(f32)``
+    to (products of bf16 values are exact in f32)."""
+    w = _head_weight(cfg, params).to(COMPUTE_DTYPE)
+    return torch.matmul(hidden.to(COMPUTE_DTYPE).to(torch.float32), w.to(torch.float32))
+
+
+# --------------------------------------------------------------------------
+# trunk forward
+# --------------------------------------------------------------------------
+
+
+def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+                   make_cache: bool = False):
+    """Returns (hidden, cache, aux_loss)."""
+    _dense_only(cfg)
+    x = _embed(cfg, params, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, make_cache=make_cache)
+    x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x, cache, aux
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    hidden, cache, _ = forward_hidden(cfg, params, batch, make_cache=True)
+    return logits_at(cfg, params, hidden[:, -1, :]), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
+    """token: (B,) integer, pos: the write position. -> (logits, cache); the
+    cache is updated in place."""
+    _dense_only(cfg)
+    x = _embed(cfg, params, token)[:, None, :]
+    x, cache = transformer.trunk_decode(cfg, params, x, cache, pos)
+    x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return logits_at(cfg, params, x[:, 0]), cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
+    _dense_only(cfg)
+    return transformer.cache_specs(cfg, batch, seq_len)

@@ -1,0 +1,199 @@
+"""Shared NN machinery (port of ``repro.models.nn``): parameter specs, norms,
+rotary embeddings, and the memory-bounded chunked attention.
+
+Parameters are plain nested dicts of tensors with the same keys and shapes as
+the JAX ``ParamSpec`` trees, layers stacked on axis 0, so JAX-initialised
+parameters load directly (``repro_torch.convert``).  Initial draws come from a
+``torch.Generator`` and differ from ``jax.random``'s; parity tests load the
+JAX-initialised parameters and never compare inits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+PyTree = Any
+NEG_INF = -1e30
+
+
+class ParamSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names (None = replicated dim)
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0  # stddev multiplier for "normal"
+
+    def with_prefix(self, n: int, axis_name: str = "layers") -> "ParamSpec":
+        return ParamSpec((n,) + self.shape, (axis_name,) + self.axes, self.init, self.scale)
+
+
+def tree_map(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
+    """Map over the leaves of a nested dict (tensors, arrays or specs)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+spec_tree_map = tree_map  # the JAX package's name: spec trees are nested dicts too
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """Leaves in sorted-key order, as ``jax.tree.leaves`` gives them."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack_specs(specs: PyTree, n: int) -> PyTree:
+    """Prepend a stacked ``layers`` dimension to every spec in the tree."""
+    return spec_tree_map(lambda s: s.with_prefix(n), specs)
+
+
+def init_params(specs: PyTree, generator: torch.Generator, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> PyTree:
+    """Materialize parameters: normal(0, scale / sqrt(fan_in)), or ones/zeros.
+    ``generator`` must live on ``device``."""
+
+    def one(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dtype, device=device)
+        if s.init != "normal":
+            raise NotImplementedError(f"init {s.init!r} belongs to a family not ported yet")
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        std = s.scale / math.sqrt(max(fan_in, 1))
+        x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
+        return x.mul_(std).to(dtype)
+
+    return spec_tree_map(one, specs)
+
+
+def param_count(specs: PyTree) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
+
+
+# --------------------------------------------------------------------------
+# basic ops
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, w_gate.to(x.dtype))
+    u = torch.matmul(x, w_up.to(x.dtype))
+    return torch.matmul(silu(g) * u, w_down.to(x.dtype))
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S) integer."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention — memory-bounded chunked softmax attention (port of the XLA
+# path).  Prefill goes through the flash kernel (kernels/flash_attention);
+# this version serves the decode step over a part-filled cache (kv_len).
+# --------------------------------------------------------------------------
+
+
+def attention(
+    q: torch.Tensor,  # (B, Sq, H, Dh)
+    k: torch.Tensor,  # (B, Skv, KVH, Dh)
+    v: torch.Tensor,  # (B, Skv, KVH, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+    q_offset: Union[int, torch.Tensor] = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Chunked attention. Peak memory O(B*H*chunk*Skv) instead of O(B*H*Sq*Skv).
+
+    ``q_offset``: absolute position of q[:, 0] (decode: the write position).
+    ``kv_len``: if given, keys at positions >= kv_len are masked (ring buffers
+    / partially-filled caches).
+    """
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    kv_pos = torch.arange(skv, device=q.device)
+
+    if sq <= chunk:
+        q_pos = torch.arange(sq, device=q.device) + q_offset
+        return _attn_chunk_masked(
+            q, k, v, q_pos, kv_pos, causal=causal, window=window, scale=scale, kv_len=kv_len
+        )
+
+    if sq % chunk:
+        raise ValueError(f"seq {sq} % attn chunk {chunk}")
+    outs = []
+    for i in range(sq // chunk):
+        q_pos = i * chunk + torch.arange(chunk, device=q.device) + q_offset
+        outs.append(_attn_chunk_masked(
+            q[:, i * chunk:(i + 1) * chunk], k, v, q_pos, kv_pos,
+            causal=causal, window=window, scale=scale, kv_len=kv_len,
+        ))
+    return torch.cat(outs, dim=1)
+
+
+def repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, S, KVH, D) -> (B, S, H, D)."""
+    kvh = k.shape[2]
+    if kvh == h:
+        return k
+    return torch.repeat_interleave(k, h // kvh, dim=2)
+
+
+def _attn_chunk_masked(q, k, v, q_pos, kv_pos, *, causal, window, scale, kv_len):
+    h = q.shape[2]
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    # bf16 x bf16 products are exact in f32: upcasting first is XLA's
+    # preferred_element_type=f32 accumulation
+    scores = torch.einsum("bchd,bshd->bchs", q.to(torch.float32), k.to(torch.float32))
+    scores = scores * scale
+    mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= kv_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        mask &= (kv_pos < kv_len)[None, :]
+    scores = scores.masked_fill(~mask[None, :, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum(
+        "bchs,bshd->bchd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
+    )
+    return out.to(q.dtype)
+
+
+def logical_constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Sharding annotation: the identity until the port shards (ROADMAP item
+    "Sharding")."""
+    return x
