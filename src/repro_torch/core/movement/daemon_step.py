@@ -17,11 +17,17 @@ from repro_torch.kernels.block_quant import ops as bq
 from repro_torch.models import nn
 
 
+def is_page_class(shape: tuple[int, ...]) -> bool:
+    """Whether a master tensor of this shape is page class: stacked (ndim >= 3)
+    with a last dim the int8 blocks tile."""
+    return len(shape) >= 3 and shape[-1] % 128 == 0
+
+
 def working_copy(master: Any, cfg_mv: MovementConfig) -> Any:
     """bf16 (or int8-roundtripped) working parameters from the f32 master."""
 
     def one(p: torch.Tensor) -> torch.Tensor:
-        if cfg_mv.expert_weights == "int8" and p.dim() >= 3 and p.shape[-1] % 128 == 0:
+        if cfg_mv.expert_weights == "int8" and is_page_class(tuple(p.shape)):
             # page-class tensors (stacked expert/layer weights): int8 wire
             q, s = bq.quantize(p.to(torch.float32))
             return bq.dequantize(q, s, torch.bfloat16)
