@@ -5,20 +5,28 @@
 
 Phases, one JSON line each; any failure exits non-zero before the last line:
   1. env      the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-  2. build    every kernel of the serving path from the sources in the checkout;
+  2. build    every kernel of the serving paths from the sources in the
+              checkout, one nvcc per source, all started together;
   3. kernels  each kernel against its plain PyTorch version on the card, at the
-              serving path's shapes and the parity-test shapes, timed with CUDA
-              events beside its bound and the plain version's time;
+              serving paths' shapes, the parity-test shapes and ragged shapes,
+              timed with CUDA events beside its bound and the plain version's
+              time (K1/K2 block_quant, K3 flash_attention, K4 mamba_scan);
   4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
   5. int8     the page-class int8 working copy of the same master (K1 and K2
               once per stacked weight), then prefill + 4 greedy decode steps
               from it, against the bf16 copy run under torch.profiler (device
               busy share and time by kernel, prefill and decode);
-  6. reference the reduced model on the card against the plain path on the CPU;
+  6. serve_ssm serve("falcon-mamba-7b", reduced=False, batch=2, prompt_len=8192,
+              gen_tokens=16): the scan kernel must launch once per layer;
+  7. profile_ssm a second falcon prefill and 4 decode steps under
+              torch.profiler: K4's and the GEMMs' share of prefill device
+              time, and decode's idle share;
+  8. reference the reduced models (danube, qwen3, falcon-mamba) on the card
+              against the plain path on the CPU;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4, 5) and read just after; launches made to compare a kernel
+main-path phase (4-7) and read just after; launches made to compare a kernel
 with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -41,8 +49,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores
+# exp's floor, reported beside the bound: 132 SMs, 16 SFU results a clock
+# each (NVIDIA's CUDA documentation, arithmetic throughput at compute
+# capability 9.0), 1.98 GHz
+SMS, SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 132, 16, 1.98e9
 
 ARCH = "h2o-danube-1.8b"
+SSM_ARCH = "falcon-mamba-7b"
 BATCH, PROMPT, GEN = 2, 8192, 16
 SEED = 0
 
@@ -58,6 +71,17 @@ ATTN_CASES = [
     (1, 200, 200, 8, 2, 80, True, 64),
     (1, 100, 300, 4, 2, 160, False, 0),
     (1, 300, 100, 4, 1, 16, True, 50),
+]
+
+# (B, S, D, N): tests/test_kernels.py's three scan shapes, and ragged shapes
+# the kernel masks itself (the Pallas kernel needs S % 128 and D % 256)
+SCAN_CASES = [
+    (1, 128, 256, 16),
+    (2, 256, 256, 16),
+    (1, 256, 512, 8),
+    (1, 200, 96, 16),
+    (2, 37, 130, 8),
+    (1, 64, 32, 4),
 ]
 
 
@@ -120,10 +144,14 @@ def device_profile(torch, fn) -> dict:
     def share(*marks):
         return sum(ms for name, ms, _ in kernels if any(m in name.lower() for m in marks))
 
+    flash_ms, scan_ms = share("flash_forward_kernel"), share("scan_kernel")
+    matmul_ms = share("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "flash_kernel_ms": share("flash_forward_kernel"),
-            "matmul_ms": share("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"),
+            "flash_kernel_ms": flash_ms, "scan_kernel_ms": scan_ms, "matmul_ms": matmul_ms,
+            "share_of_device_time": {k: ms / busy_ms if busy_ms else None for k, ms in
+                                     (("flash", flash_ms), ("scan", scan_ms),
+                                      ("matmul", matmul_ms))},
             "kernel_launches": sum(n for _, _, n in kernels),
             "top_kernels": [[name[:80], ms, n] for name, ms, n in kernels[:6]]}
 
@@ -299,30 +327,151 @@ def check_flash_attention(torch, cfg):
             "shape": list(shape)}
 
 
+def check_mamba_scan(torch, cfg):
+    """K4 against the plain version on the same inputs, on y and h_last, at
+    |err| <= 1e-4 + 1e-4|ref| (tests/test_kernels.py's atol = rtol = 1e-4).
+    Both sides compute in f32 with accurate exp, in another summation order."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba_scan import kernel, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    atol = rtol = 1e-4
+
+    def inputs(b, s, d, n, x_dtype, falcon_a=False):
+        x = torch.randn(b, s, d, generator=gen, device=dev).to(x_dtype)
+        bm = torch.randn(b, s, n, generator=gen, device=dev)
+        cm = torch.randn(b, s, n, generator=gen, device=dev)
+        if falcon_a:  # falcon's s4d A = -(1..N), dt over its dt_bias init range
+            a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(d, n).contiguous()
+            dt = torch.rand(b, s, d, generator=gen, device=dev) * (1e-1 - 1e-3) + 1e-3
+        else:  # tests/test_kernels.py's distributions
+            a = -torch.exp(torch.randn(d, n, generator=gen, device=dev) * 0.5)
+            dt = F.softplus(torch.randn(b, s, d, generator=gen, device=dev) - 1.0)
+        return dt, a, bm, cm, x
+
+    worst = 0.0
+
+    def check(case, args, label):
+        nonlocal worst
+        y, h = kernel.forward(*args)
+        y_ref, h_ref = ref.selective_scan_ref(*args)
+        row = {"case": list(case), "x_dtype": str(args[4].dtype).replace("torch.", ""),
+               "a": label, "tol": f"|err| <= {atol} + {rtol}|ref|"}
+        for name, out, expect in (("y", y, y_ref), ("h_last", h, h_ref)):
+            err = (out - expect).abs()
+            excess = float((err - rtol * expect.abs()).max())
+            row[f"{name}_max_abs_err"] = float(err.max())
+            row[f"{name}_mean_abs_ref"] = float(expect.abs().mean())
+            worst = max(worst, float(err.max()))
+            require(excess <= atol, f"K4 {case} {label}: {name} exceeds {atol} + {rtol}|ref| "
+                                    f"by {excess}")
+        emit("kernels.mamba_scan", **row)
+
+    for case in SCAN_CASES:
+        check(case, inputs(*case, torch.float32), "random")
+    shape = (BATCH, PROMPT, cfg.d_inner, cfg.ssm_state)
+    args = inputs(*shape, torch.bfloat16, falcon_a=True)
+    check(shape, args, "falcon s4d")
+    del args
+    args = inputs(*shape, torch.bfloat16)  # x in bf16, as the model passes it
+    check(shape, args, "random")
+    ms = time_ms(torch, lambda: kernel.forward(*args))
+    plain_ms = time_ms(torch, lambda: ref.selective_scan_ref(*args), reps=3, warmup=1)
+
+    b, s, d, n = shape
+    updates = b * s * d * n
+    flops = 8 * updates  # the Pallas shim's count (repro/kernels/mamba_scan/ops.py)
+    # dt f32 + x bf16 + y f32 per (b, s, d); B, C f32 per (b, s, n); A; h_last
+    n_bytes = (4 + 2 + 4) * b * s * d + 2 * 4 * b * s * n + 4 * d * n + 4 * b * d * n
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    emit("kernels.mamba_scan", case=list(shape), x_dtype="bfloat16", ms=ms, plain_ms=plain_ms,
+         library_ms=None, updates=updates, flop=flops, bytes=n_bytes, bytes_bound_ms=bytes_ms,
+         f32_ops_bound_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by,
+         sfu_exp_bound_ms=updates / (SMS * SFU_EXP_PER_CLOCK * MAX_SM_CLOCK_HZ) * 1e3,
+         achieved_gb_per_s=n_bytes / ms / 1e6)
+    del args
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": list(shape)}
+
+
 # --------------------------------------------------------------------------
-# phases 4-6: the main path and the reference check
+# phases 4-8: the main paths and the reference check
 # --------------------------------------------------------------------------
 
 
-def run_serve(torch, runtime):
+def run_serve(torch, runtime, phase, arch, kernel):
+    """serve(arch) at full width and depth; ``kernel`` (the path's kernel) must
+    launch once per layer, and the tokens must lie in the vocabulary."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
 
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
-    r = serve(ARCH, reduced=False, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
+    r = serve(arch, reduced=False, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
               movement="daemon", seed=SEED)
     wall = time.perf_counter() - t0
     launches = dict(runtime.LAUNCHES)
-    require(launches["flash_attention.forward"] == 24,
-            f"serve: flash kernel launched {launches['flash_attention.forward']} times, not 24")
+    require(launches[kernel] == cfg.num_layers,
+            f"{phase}: {kernel} launched {launches[kernel]} times, not {cfg.num_layers}")
     toks = r["tokens"]
-    require(toks.shape == (BATCH, GEN) and ((toks >= 0) & (toks < 32_000)).all(),
-            f"serve: tokens of shape {toks.shape} out of range")
-    emit("serve", arch=ARCH, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
+    require(toks.shape == (BATCH, GEN) and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+            f"{phase}: tokens of shape {toks.shape} out of [0, {cfg.vocab_size})")
+    emit(phase, arch=arch, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
          prefill_s=r["prefill_s"], decode_s_per_token=r["decode_s_per_token"],
          tokens_per_s=r["tokens_per_s"], wall_s=wall,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    return launches
+
+
+def run_ssm_profile(torch, runtime, cfg):
+    """A second falcon-mamba prefill and 4 greedy decode steps from the bf16
+    working copy, under torch.profiler; K4 must launch once per layer."""
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    dev = torch.device("cuda")
+    master = nn.init_params(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    params = mv.working_copy(master, mv.DAEMON_DEFAULT)
+    del master
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    prompt = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    out = {}
+
+    def run_prefill():
+        out["logits"], out["cache"] = prefill(params, {"tokens": prompt})
+
+    def run_decode():
+        tok = torch.argmax(out["logits"], dim=-1).to(torch.int32)
+        out["steps"] = []
+        for i in range(4):
+            tok, lg, out["cache"] = decode(params, out["cache"], tok, PROMPT + i)
+            out["steps"].append(lg)
+
+    runtime.reset_launches()
+    emit("profile_ssm", part="prefill (bf16 copy)", **device_profile(torch, run_prefill))
+    emit("profile_ssm", part="4 decode steps (bf16 copy)", **device_profile(torch, run_decode))
+    launches = dict(runtime.LAUNCHES)
+    require(launches["mamba_scan.forward"] == cfg.num_layers,
+            f"profile_ssm: K4 launched {launches['mamba_scan.forward']} times, "
+            f"not {cfg.num_layers}")
+    require(all(bool(torch.isfinite(lg).all()) for lg in [out["logits"], *out["steps"]]),
+            "profile_ssm: non-finite logits")
+    state = out["cache"]["state"]
+    require(state.dtype == torch.float32 and bool(torch.isfinite(state).all()),
+            "profile_ssm: the SSM state is not finite f32")
+    emit("profile_ssm", launches=launches, logit_scale=float(out["logits"].abs().max()),
+         state_shape=list(state.shape))
+    del params, out
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -403,7 +552,7 @@ def run_reference(torch):
 
     tol = 8e-2  # bf16 compute on both sides, rounded at different places
     worst = {}
-    for arch in (ARCH, "qwen3-14b"):
+    for arch in (ARCH, "qwen3-14b", SSM_ARCH):
         cfg = get_config(arch).reduced()
         master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                                 torch.device("cpu"))
@@ -455,18 +604,23 @@ def main() -> int:
     emit("build", wall_s=time.perf_counter() - t0, per_library_s=seconds, ptxas=ptxas,
          libraries=[runtime.library_path(n).name for n in runtime.SOURCES])
 
-    cfg = get_config(ARCH)
+    cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
     k1, k2 = check_block_quant(torch, cfg)
     k3 = check_flash_attention(torch, cfg)
     torch.cuda.empty_cache()
-
-    serve_launches = run_serve(torch, runtime)
+    k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
-    int8_launches = run_int8_copy(torch, runtime, cfg)
+
+    per_phase = {"serve": run_serve(torch, runtime, "serve", ARCH, "flash_attention.forward")}
+    torch.cuda.empty_cache()
+    per_phase["int8_copy"] = run_int8_copy(torch, runtime, cfg)
+    torch.cuda.empty_cache()
+    per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", SSM_ARCH, "mamba_scan.forward")
+    torch.cuda.empty_cache()
+    per_phase["profile_ssm"] = run_ssm_profile(torch, runtime, ssm_cfg)
     run_reference(torch)
 
     src = "src/repro_torch/kernels"
-    per_phase = {"serve": serve_launches, "int8_copy": int8_launches}
 
     def launches(name):
         return sum(p[name] for p in per_phase.values())
@@ -503,6 +657,15 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "per": f"one launch (one layer) at {k3['shape']}, bf16"},
+        {"name": "mamba_scan.forward (K4)", "route": "cuda",
+         "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:27",
+         "launches": launches("mamba_scan.forward"),
+         "launches_by_phase": by_phase("mamba_scan.forward"),
+         "max_abs_err": k4["max_abs_err"], "tol": "y and h_last |err| <= 1e-4 + 1e-4|ref|",
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "per": f"one launch (one layer) at (B, S, D, N) = {k4['shape']}, x bf16"},
     ]
     for kern in kernels:
         require(kern["launches"] > 0, f"{kern['name']} never launched on the main path")

@@ -26,9 +26,11 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "block_quant": _KERNELS / "block_quant" / "csrc" / "block_quant.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "mamba_scan": _KERNELS / "mamba_scan" / "csrc" / "mamba_scan.cu",
 }
 # IEEE division and accurate expf: no --use_fast_math (block_quant's codes
-# would flip at .5 boundaries; flash_attention is held to 2e-5 in f32).
+# would flip at .5 boundaries; flash_attention is held to 2e-5 in f32, and
+# mamba_scan to 1e-4 after 8192 steps of exp-decayed state).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -38,6 +40,7 @@ LAUNCHES: Dict[str, int] = {
     "block_quant.quantize": 0,
     "block_quant.dequantize": 0,
     "flash_attention.forward": 0,
+    "mamba_scan.forward": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,6 +3,8 @@ decode on one device, with the DaeMon working copy of the weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --batch 2 --prompt-len 8192 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --batch 2 --prompt-len 8192 --gen 16
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -82,8 +84,11 @@ def serve(
 
 
 def _grow_cache(cfg, cache, total_len: int):
-    """Pad the seq dim (axis 2: [L, B, S, ...]) of cache buffers up to
-    total_len.  SWA ring caches are window-sized and stay put."""
+    """Pad the seq dim (axis 2: [L, B, S, ...]) of attention cache buffers up
+    to total_len.  SWA ring caches are window-sized and stay put.  An SSM
+    cache (a ``{"state", "conv"}`` dict: the recurrent state and the conv
+    tail) has no seq dim and is left alone, as the docstring of JAX's
+    ``_grow_cache`` intends; its code pads the conv tail, and decode then fails."""
 
     def grow(x):
         if x.dim() < 4:
@@ -96,7 +101,14 @@ def _grow_cache(cfg, cache, total_len: int):
             return out
         return x
 
-    return nn.tree_map(grow, cache)
+    def walk(tree):
+        if isinstance(tree, dict):
+            if set(tree) == {"state", "conv"}:
+                return tree
+            return {k: walk(v) for k, v in tree.items()}
+        return grow(tree)
+
+    return walk(cache)
 
 
 def main():

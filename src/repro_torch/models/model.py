@@ -1,4 +1,5 @@
-"""Model API of the port (port of ``repro.models.model``), dense family.
+"""Model API of the port (port of ``repro.models.model``), dense and SSM
+families.
 
     model_specs(cfg)            -> ParamSpec tree (single source of truth)
     prefill(cfg, params, batch) -> (last_logits, cache) [inference-prefill]
@@ -15,21 +16,22 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import nn, transformer
+from repro_torch.models import mamba, nn, transformer
+from repro_torch.models.nn import ParamSpec
+from repro_torch.models.transformer import _layer
 
 COMPUTE_DTYPE = torch.bfloat16
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 13 (MoE + MLA)",
-    "ssm": "ROADMAP Queue 1 item 11 (SSM family)",
     "hybrid": "ROADMAP Queue 1 item 12 (hybrid family)",
     "vlm": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
     "audio": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
 }
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
         if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
@@ -43,13 +45,22 @@ def _dense_only(cfg: ModelConfig) -> None:
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _dense_only(cfg)
+    _check_ported(cfg)
+    if cfg.family == "ssm":
+        s: Dict[str, Any] = {
+            "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
+            "blocks": nn.stack_specs(mamba.mamba1_specs(cfg), cfg.num_layers),
+            "ln_f": ParamSpec((cfg.d_model,), (None,), "ones"),
+        }
+        if not cfg.tie_embeddings:
+            s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+        return s
     return transformer.lm_specs(cfg)
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Every parameter of a dense model is active, so ``active_only`` changes
-    nothing until the MoE family is ported."""
+    """Every parameter of a dense or SSM model is active, so ``active_only``
+    changes nothing until the MoE family is ported."""
     return nn.param_count(model_specs(cfg))
 
 
@@ -84,8 +95,19 @@ def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                    make_cache: bool = False):
     """Returns (hidden, cache, aux_loss)."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, batch["tokens"])
+    if cfg.family == "ssm":
+        layer_caches = []
+        for i in range(cfg.num_layers):
+            x, c = mamba.mamba1_forward(cfg, _layer(params["blocks"], i), x,
+                                        make_cache=make_cache)
+            layer_caches.append(c)
+        cache = None
+        if make_cache:  # stacked on a leading layers axis; the state stays f32
+            cache = {key: torch.stack([c[key] for c in layer_caches]) for key in ("state", "conv")}
+        x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, make_cache=make_cache)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -105,13 +127,21 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
     """token: (B,) integer, pos: the write position. -> (logits, cache); the
     cache is updated in place."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, token)[:, None, :]
-    x, cache = transformer.trunk_decode(cfg, params, x, cache, pos)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x, c = mamba.mamba1_decode(cfg, _layer(params["blocks"], i), x, _layer(cache, i))
+            cache["state"][i] = c["state"]
+            cache["conv"][i] = c["conv"]
+    else:
+        x, cache = transformer.trunk_decode(cfg, params, x, cache, pos)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return logits_at(cfg, params, x[:, 0]), cache
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
-    _dense_only(cfg)
+    _check_ported(cfg)
+    if cfg.family == "ssm":
+        return nn.stack_specs(mamba.mamba1_cache_specs(cfg, batch), cfg.num_layers)
     return transformer.cache_specs(cfg, batch, seq_len)

@@ -53,16 +53,25 @@ def stack_specs(specs: PyTree, n: int) -> PyTree:
 
 def init_params(specs: PyTree, generator: torch.Generator, device: torch.device,
                 dtype: torch.dtype = torch.float32) -> PyTree:
-    """Materialize parameters: normal(0, scale / sqrt(fan_in)), or ones/zeros.
-    ``generator`` must live on ``device``."""
+    """Materialize parameters: normal(0, scale / sqrt(fan_in)), ones/zeros, or
+    the SSM inits (``s4d``: log(1..N) along the last dim; ``dt_bias``: the
+    softplus inverse of dt ~ U[1e-3, 1e-1]).  ``generator`` must live on
+    ``device``."""
 
     def one(s: ParamSpec) -> torch.Tensor:
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dtype, device=device)
+        if s.init == "s4d":
+            row = torch.log(torch.arange(1, s.shape[-1] + 1, dtype=torch.float32, device=device))
+            return row.expand(s.shape).to(dtype).contiguous()
+        if s.init == "dt_bias":
+            u = torch.rand(s.shape, generator=generator, dtype=torch.float32, device=device)
+            u = u.mul_(1e-1 - 1e-3).add_(1e-3)
+            return torch.log(torch.expm1(u)).to(dtype)
         if s.init != "normal":
-            raise NotImplementedError(f"init {s.init!r} belongs to a family not ported yet")
+            raise ValueError(f"unknown init {s.init!r}")
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
         std = s.scale / math.sqrt(max(fan_in, 1))
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)

@@ -39,7 +39,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     modules =["repro_torch"] + [
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="repro_torch.")
     ]
-    assert "repro_torch.launch.serve" in modules and len(modules) > 25
+    for m in ("repro_torch.launch.serve", "repro_torch.models.mamba",
+              "repro_torch.kernels.mamba_scan.kernel", "repro_torch.kernels.mamba_scan.ref"):
+        assert m in modules, m
+    assert len(modules) > 30
     code = (
         "import importlib, sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -57,3 +60,20 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_every_kernel_source_is_in_the_checkout_with_a_counter():
+    """``chip_smoke.py`` builds every entry of ``runtime.SOURCES`` from the
+    checkout: each is a ``.cu`` file under the package with a plain C
+    interface, and each launch counter names one of them."""
+    pytest.importorskip("torch", reason="the PyTorch port needs torch (pyproject.toml)")
+    from repro_torch.kernels import runtime
+
+    assert set(runtime.SOURCES) == {"block_quant", "flash_attention", "mamba_scan"}
+    for name, path in runtime.SOURCES.items():
+        assert path.is_file() and path.suffix == ".cu" and PORT in path.parents, name
+        text = path.read_text()
+        assert 'extern "C"' in text and "repro_error_string" in text, name
+        assert "Replaces: src/repro/kernels/" in text, name
+    assert {k.split(".")[0] for k in runtime.LAUNCHES} == set(runtime.SOURCES)
+    assert "mamba_scan.forward" in runtime.LAUNCHES

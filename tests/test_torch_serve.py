@@ -108,10 +108,12 @@ def test_prefill_and_decode_match_jax(arch):
     print(f"{arch} decode logits max |diff| over {GEN} steps {worst:.3g}")
 
 
-def test_tolerance_covers_jax_own_spread():
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "falcon-mamba-7b"])
+def test_tolerance_covers_jax_own_spread(arch):
     """JAX's jitted and eager runs of the same model differ (eager rounds every
-    op to bf16); the tolerance must not be tighter than that spread."""
-    arch = "h2o-danube-1.8b"
+    op to bf16); the tolerance must not be tighter than that spread.  The SSM
+    cache is not grown: JAX's ``_grow_cache`` pads its conv tail (ROADMAP
+    Queue 3)."""
     cfg = jax_get_config(arch).reduced()
     params = jax_working_copy(jnn.init_params(JM.model_specs(cfg), jax.random.key(0)),
                               JAX_DAEMON_DEFAULT)
@@ -125,11 +127,16 @@ def test_tolerance_covers_jax_own_spread():
     tok = jnp.argmax(logits_jit, axis=-1).astype(jnp.int32)
     pos = jnp.asarray(PROMPT, jnp.int32)
     decode = jax_steps.make_decode_step(cfg)
-    _, l_jit, _ = jax.jit(decode)(params, jax_grow_cache(cfg, cache_jit, PROMPT + 1), tok, pos)
+
+    def grow(cache):
+        return cache if cfg.family == "ssm" else jax_grow_cache(cfg, cache, PROMPT + 1)
+
+    _, l_jit, _ = jax.jit(decode)(params, grow(cache_jit), tok, pos)
     with jax.disable_jit():
-        _, l_eager, _ = decode(params, jax_grow_cache(cfg, cache_eager, PROMPT + 1), tok, pos)
+        _, l_eager, _ = decode(params, grow(cache_eager), tok, pos)
     decode_spread = float(np.abs(_f32(l_jit) - _f32(l_eager)).max())
-    print(f"JAX jit vs eager logits: prefill {prefill_spread:.3g}, decode {decode_spread:.3g}")
+    print(f"{arch} JAX jit vs eager logits: prefill {prefill_spread:.3g}, "
+          f"decode {decode_spread:.3g}")
     assert max(prefill_spread, decode_spread) <= LOGIT_TOL
 
 
@@ -175,9 +182,9 @@ def test_swa_prompt_shorter_than_window_mirrors_jax():
     assert inside <= LOGIT_TOL
 
 
-def test_serve_runs_on_cpu_when_asked():
-    r = serve("h2o-danube-1.8b", reduced=True, batch=2, prompt_len=32, gen_tokens=4,
-              device="cpu")
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "falcon-mamba-7b"])
+def test_serve_runs_on_cpu_when_asked(arch):
+    r = serve(arch, reduced=True, batch=2, prompt_len=32, gen_tokens=4, device="cpu")
     assert set(r) == {"tokens", "prefill_s", "decode_s_per_token", "tokens_per_s"}
     assert r["tokens"].shape == (2, 4) and r["tokens"].dtype == np.int32
     assert ((r["tokens"] >= 0) & (r["tokens"] < 256)).all()
