@@ -10,7 +10,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serving paths' shapes, the parity-test shapes and ragged shapes,
               timed with CUDA events beside its bound and the plain version's
-              time (K1/K2 block_quant, K3 flash_attention, K4 mamba_scan);
+              time (K1/K2 block_quant, K3 flash_attention in f32 and bf16,
+              with the HGMMA count of its tensor-core kernels' SASS and
+              scaled_dot_product_attention's time beside it, K4 mamba_scan);
   4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
   5. int8     the page-class int8 working copy of the same master (K1 and K2
@@ -144,7 +146,7 @@ def device_profile(torch, fn) -> dict:
     def share(*marks):
         return sum(ms for name, ms, _ in kernels if any(m in name.lower() for m in marks))
 
-    flash_ms, scan_ms = share("flash_forward_kernel"), share("scan_kernel")
+    flash_ms, scan_ms = share("flash_forward"), share("scan_kernel")
     matmul_ms = share("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
@@ -241,39 +243,98 @@ def check_block_quant(torch, cfg):
     return k1, k2
 
 
+def short_kernel_name(mangled: str) -> str:
+    """flash_forward_wgmma_kernel<80> for its mangled name."""
+    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z0-9]+)*_kernel)I((?:Li\d+E)+)", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def ptxas_per_kernel(log: str) -> dict:
+    """Registers and spill stores of each kernel in an nvcc -Xptxas=-v log."""
+    found = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                       r"spill stores.*\n.*Used (\d+) registers", log)
+    return {short_kernel_name(fn): {"registers": int(regs), "spill_store_bytes": int(spill)}
+            for fn, _, spill, regs in found}
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """How many ``opcode`` instructions each kernel of a built library holds,
+    from ``cuobjdump -sass`` (the toolkit's)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def check_flash_attention(torch, cfg):
+    """K3 against the plain version on the same inputs, over ATTN_CASES, the
+    reduced danube's head_dim 16 and the serving shape: f32 (CUDA cores) at
+    |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <= 1e-5 +
+    1e-2|ref|, one bf16 ulp."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import kernel, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    atol, rtol = 1e-5, 1e-2
 
     def qkv(b, sq, skv, h, kvh, d, dt):
         return (torch.randn(b, sq, h, d, generator=gen, device=dev).to(dt),
                 torch.randn(b, skv, kvh, d, generator=gen, device=dev).to(dt),
                 torch.randn(b, skv, kvh, d, generator=gen, device=dev).to(dt))
 
-    worst_f32 = 0.0
-    for case in ATTN_CASES:
+    # every bf16 instance must hold wgmma (HGMMA in SASS); the f32 ones none
+    lib = runtime.library_path("flash_attention")
+    hgmma = {short_kernel_name(fn): n for fn, n in sass_counts(lib, "HGMMA").items()}
+    tc = {fn: n for fn, n in hgmma.items() if "wgmma" in fn}
+    require(len(tc) == len(kernel.HEAD_DIMS) and all(tc.values()),
+            f"K3: tensor-core instances without HGMMA: {tc}")
+    emit("kernels.flash_attention", hgmma_per_kernel=hgmma,
+         ptxas_per_kernel=ptxas_per_kernel(lib.with_suffix(".log").read_text()))
+
+    worst_f32 = worst_bf16 = 0.0
+    for case in ATTN_CASES + [reduced_attn_case()]:
         b, sq, skv, h, kvh, d, causal, window = case
-        q, k, v = qkv(b, sq, skv, h, kvh, d, torch.float32)
-        out = kernel.forward(q, k, v, causal=causal, window=window)
-        expect = ref.attention_ref(q, k, v, causal=causal, window=window)
-        err = (out - expect).abs()
-        excess = float((err - 2e-5 * expect.abs()).max())
-        worst_f32 = max(worst_f32, float(err.max()))
-        require(excess <= 2e-5, f"K3 f32 {case}: |err| exceeds 2e-5 + 2e-5|ref| by {excess}")
-        emit("kernels.flash_attention", case=list(case), dtype="float32",
-             max_abs_err=float(err.max()), tol="atol=rtol=2e-5")
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, sq, skv, h, kvh, d, dt)
+            out = kernel.forward(q, k, v, causal=causal, window=window)
+            expect = ref.attention_ref(q, k, v, causal=causal, window=window)
+            err = (out.float() - expect.float()).abs()
+            if dt == torch.float32:
+                excess = float((err - 2e-5 * expect.abs()).max())
+                worst_f32 = max(worst_f32, float(err.max()))
+                require(excess <= 2e-5,
+                        f"K3 f32 {case}: |err| exceeds 2e-5 + 2e-5|ref| by {excess}")
+                tol = "atol=rtol=2e-5"
+            else:
+                excess = float((err - rtol * expect.float().abs()).max())
+                worst_bf16 = max(worst_bf16, float(err.max()))
+                require(excess <= atol, f"K3 bf16 {case}: |err| exceeds {atol} + {rtol}|ref| "
+                                        f"by {excess}")
+                tol = f"|err| <= {atol} + {rtol}|ref|"
+            emit("kernels.flash_attention", case=list(case), dtype=str(dt).replace("torch.", ""),
+                 max_abs_err=float(err.max()), excess_over_tol=excess, tol=tol)
 
     window = cfg.window if cfg.attn_kind == "swa" else 0
     shape = (BATCH, PROMPT, PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, window)
     # Random q/k/v make |o| ~ sqrt(e / keys), ~0.03 for most rows here, so an
     # absolute limit would hide a wrong KV tile or window edge.  In f32 the
     # serving shape is held as tightly as the parity cases; in bf16 both sides
-    # compute in f32 and round once, so they may differ by one bf16 ulp
-    # (<= 2^-7 |o|) and no more.
+    # keep p in f32 (the kernel as bf16 hi + lo) and round o once, so they may
+    # differ by one bf16 ulp (<= 2^-7 |o|) and no more.
     q, k, v = qkv(*shape[:6], torch.float32)
     out = kernel.forward(q, k, v, causal=True, window=window)
     expect = ref.attention_ref(q, k, v, causal=True, window=window)
@@ -287,7 +348,6 @@ def check_flash_attention(torch, cfg):
     worst_f32 = max(worst_f32, float(err32.max()))
     del q, k, v, out, expect, err32
 
-    atol, rtol = 1e-5, 1e-2
     q, k, v = qkv(*shape[:6], torch.bfloat16)
     out = kernel.forward(q, k, v, causal=True, window=window)
     expect = ref.attention_ref(q, k, v, causal=True, window=window)
@@ -297,9 +357,8 @@ def check_flash_attention(torch, cfg):
     rel_l1 = float(diff.sum() / expect.float().abs().sum())
     require(excess <= atol, f"K3 bf16 at the serving shape: |err| exceeds {atol} + {rtol}|ref| "
                             f"by {excess}")
+    worst_bf16 = max(worst_bf16, err)
     del diff
-    ms = time_ms(torch, lambda: kernel.forward(q, k, v, causal=True, window=window))
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True, window=window))
 
     # yardstick only, never called by the port: one PyTorch call, same function
     qpos = torch.arange(PROMPT, device=dev)[:, None]
@@ -308,23 +367,46 @@ def check_flash_attention(torch, cfg):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
     lib_err = float((lib_out.transpose(1, 2).float() - expect.float()).abs().max())
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=band, enable_gqa=True))
+    del lib_out
+
+    # kernel and library in turns (kernel, library, library, kernel)
+    def k3():
+        return kernel.forward(q, k, v, causal=True, window=window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    k3_a, lib_a, lib_b, k3_b = (time_ms(torch, fn) for fn in (k3, sdpa, sdpa, k3))
+    ms, library_ms = min(k3_a, k3_b), min(lib_a, lib_b)
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True, window=window))
 
     b, sq, skv, h, kvh, d = shape[:6]
     flops = 4 * d * b * h * band_pairs(sq, skv, True, window)
     n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kvh * d)  # q, o; k, v in bf16
     bound_ms = max(flops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / BF16_FLOP_PER_S > n_bytes / HBM_BYTES_PER_S else "bytes"
+    require(ms < library_ms, f"K3 bf16 at the serving shape: {ms} ms, not faster than "
+                             f"scaled_dot_product_attention's {library_ms} ms")
     emit("kernels.flash_attention", case=list(shape), dtype="bfloat16", max_abs_err=err,
-         mean_abs_ref=float(expect.float().abs().mean()), rel_l1_err=rel_l1,
-         tol=f"|err| <= {atol} + {rtol}|ref|", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         excess_over_tol=excess, mean_abs_ref=float(expect.float().abs().mean()),
+         rel_l1_err=rel_l1, tol=f"|err| <= {atol} + {rtol}|ref|", ms=ms, ms_runs=[k3_a, k3_b],
+         plain_ms=plain_ms, library_ms=library_ms, library_ms_runs=[lib_a, lib_b],
          library_max_abs_err=lib_err, flop=flops, bytes=n_bytes, bound_ms=bound_ms,
-         f32_cuda_core_bound_ms=flops / F32_FLOP_PER_S * 1e3,
-         achieved_tflop_per_s=flops / ms / 1e9)
-    return {"max_abs_err": err, "f32_max_abs_err": worst_f32, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "shape": list(shape)}
+         share_of_bound=bound_ms / ms, achieved_tflop_per_s=flops / ms / 1e9)
+    return {"max_abs_err": worst_bf16, "f32_max_abs_err": worst_f32, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+            "achieved_tflop_per_s": flops / ms / 1e9,
+            "hgmma_instructions": sum(tc.values()), "shape": list(shape)}
+
+
+def reduced_attn_case():
+    """K3's case in the reduced danube that the reference phase runs on the
+    card: (B, Sq, Skv, H, KVH, D, causal, window), head_dim 16."""
+    from repro_torch.configs import get_config
+
+    r = get_config(ARCH).reduced()
+    return (2, 40, 40, r.num_heads, r.num_kv_heads, r.head_dim, True, r.window)
 
 
 def check_mamba_scan(torch, cfg):
@@ -656,7 +738,10 @@ def main() -> int:
          "tol": "bf16 |err| <= 1e-5 + 1e-2|ref|; f32 atol=rtol=2e-5",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-         "per": f"one launch (one layer) at {k3['shape']}, bf16"},
+         "share_of_bound": k3["share_of_bound"],
+         "achieved_tflop_per_s": k3["achieved_tflop_per_s"],
+         "hgmma_instructions": k3["hgmma_instructions"],
+         "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA)"},
         {"name": "mamba_scan.forward (K4)", "route": "cuda",
          "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:27",

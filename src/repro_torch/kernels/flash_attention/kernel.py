@@ -1,15 +1,17 @@
 """Launch wrapper of the Hopper flash-attention kernel K3 in
-``csrc/flash_attention.cu``, on CUDA tensors."""
+``csrc/flash_attention.cu``, on CUDA tensors: bf16 goes to the tensor-core
+(wgmma + TMA) kernel, f32 to the CUDA-core one."""
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import runtime
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 160)  # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)  # the kernels' template instances
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _SIGNATURES = {
@@ -18,18 +20,30 @@ _SIGNATURES = {
 }
 
 
+def layout_error(name: str, shape, strides, dtype: torch.dtype, data_ptr: int) -> Optional[str]:
+    """Why the kernel cannot read a (B, S, heads, D) operand laid out so, or
+    None.  D must be contiguous.  bf16 goes through TMA, which needs 16-byte
+    aligned rows: the other strides a multiple of 8 elements.  f32 is read
+    with 16-byte vector loads of 4 elements: strides a multiple of 4.  Either
+    way the base is 16-byte aligned."""
+    if len(shape) != 4:
+        return f"{name} must be (B, S, heads, D), got shape {tuple(shape)}"
+    step = 8 if dtype == torch.bfloat16 else 4
+    if strides[3] != 1 or any(s % step for s in strides[:3]) or data_ptr % 16:
+        return (f"{name} needs unit stride on D, other strides a multiple of {step} elements, "
+                f"and 16-byte alignment; got strides {tuple(strides)}")
+    return None
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
         if t.dtype != q.dtype or t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"q, k, v must share dtype float32 or bfloat16, got {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be (B, S, heads, D), got shape {tuple(t.shape)}")
-        # 16-/8-byte vector loads of 4 consecutive elements
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs unit stride on D, other strides a multiple of 4, "
-                             "and 16-byte alignment")
+        err = layout_error(name, t.shape, t.stride(), t.dtype, t.data_ptr())
+        if err:
+            raise ValueError(err)
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
