@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               timed with CUDA events beside its bound and the plain version's
               time (K1/K2 block_quant, K3 flash_attention in f32 and bf16,
               with the HGMMA count of its tensor-core kernels' SASS and
-              scaled_dot_product_attention's time beside it, K4 mamba_scan);
+              scaled_dot_product_attention's time beside it, K4 mamba_scan
+              with no spills and its shares of the bound and of the SFU's
+              exp floor);
   4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
   5. int8     the page-class int8 working copy of the same master (K1 and K2
@@ -75,8 +77,10 @@ ATTN_CASES = [
     (1, 300, 100, 4, 1, 16, True, 50),
 ]
 
-# (B, S, D, N): tests/test_kernels.py's three scan shapes, and ragged shapes
-# the kernel masks itself (the Pallas kernel needs S % 128 and D % 256)
+# (B, S, D, N): tests/test_kernels.py's three scan shapes, ragged shapes the
+# kernel masks itself (the Pallas kernel needs S % 128 and D % 256; D = 130
+# takes the 4-byte copies), and two long ones that cross the staging ring
+# many times and end on a ragged chunk
 SCAN_CASES = [
     (1, 128, 256, 16),
     (2, 256, 256, 16),
@@ -84,7 +88,16 @@ SCAN_CASES = [
     (1, 200, 96, 16),
     (2, 37, 130, 8),
     (1, 64, 32, 4),
+    (1, 4099, 200, 8),
+    (2, 1030, 520, 4),
 ]
+# and with x in bf16, as the model passes it: one shape whose rows take the
+# bf16 register path (D % 8 != 0), one long one on the 16-byte copies
+SCAN_CASES_BF16 = [(2, 37, 130, 8), (1, 4099, 200, 8)]
+# and with x at a storage offset of 2 elements, in f32 and in bf16: D allows
+# 16-byte copies but x's pointer does not, so N = 16 takes the 4-byte copies
+# and the scalar h_last store
+SCAN_CASE_OFFSET_X = (2, 300, 256, 16)
 
 
 def emit(phase: str, **fields) -> None:
@@ -243,12 +256,21 @@ def check_block_quant(torch, cfg):
     return k1, k2
 
 
+_TEMPLATE_ARG = r"f|13__nv_bfloat16|Li\d+E"
+_ARG_NAMES = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
 def short_kernel_name(mangled: str) -> str:
-    """flash_forward_wgmma_kernel<80> for its mangled name."""
-    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z0-9]+)*_kernel)I((?:Li\d+E)+)", mangled)
-    if not m:
+    """flash_forward_wgmma_kernel<80> or scan_kernel<bf16, 16> for its
+    mangled name (a length-prefixed name ending in _kernel, then its
+    template arguments)."""
+    for m in re.finditer(rf"(?=(\d+)([a-z][a-z0-9_]*_kernel)I((?:{_TEMPLATE_ARG})+)E)", mangled):
+        if int(m.group(1)) == len(m.group(2)):
+            break
+    else:
         return mangled
-    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args = [_ARG_NAMES.get(a, a[2:-1]) for a in re.findall(_TEMPLATE_ARG, m.group(3))]
+    return f"{m.group(2)}<{', '.join(args)}>"
 
 
 def ptxas_per_kernel(log: str) -> dict:
@@ -412,10 +434,21 @@ def reduced_attn_case():
 def check_mamba_scan(torch, cfg):
     """K4 against the plain version on the same inputs, on y and h_last, at
     |err| <= 1e-4 + 1e-4|ref| (tests/test_kernels.py's atol = rtol = 1e-4).
-    Both sides compute in f32 with accurate exp, in another summation order."""
+    Both sides compute in f32; K4 takes exp as ex2.approx of dt·(A·log2 e),
+    the plain version an accurate exp, and they sum in other orders.  No
+    instance of K4 may spill."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.mamba_scan import kernel, ref
+
+    log = runtime.library_path("mamba_scan").with_suffix(".log").read_text()
+    ptxas = ptxas_per_kernel(log)
+    require(len(ptxas) == 2 * len(kernel.STATE_DIMS),
+            f"K4: ptxas reported {sorted(ptxas)}, not one instance per x type and N")
+    spilled = {k: v for k, v in ptxas.items() if v["spill_store_bytes"]}
+    require(not spilled, f"K4 instances spill: {spilled}")
+    emit("kernels.mamba_scan", ptxas_per_kernel=ptxas)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -453,6 +486,14 @@ def check_mamba_scan(torch, cfg):
 
     for case in SCAN_CASES:
         check(case, inputs(*case, torch.float32), "random")
+    for case in SCAN_CASES_BF16:
+        check(case, inputs(*case, torch.bfloat16), "random")
+    for x_dtype in (torch.float32, torch.bfloat16):
+        *rest, x = inputs(*SCAN_CASE_OFFSET_X, x_dtype)
+        x_off = torch.empty(x.numel() + 2, dtype=x_dtype, device=dev)[2:].view(x.shape)
+        x_off.copy_(x)
+        require(x_off.data_ptr() % 16 != 0 and x_off.is_contiguous(), "K4: x_off is not offset")
+        check(SCAN_CASE_OFFSET_X, (*rest, x_off), "random, x at storage offset 2")
     shape = (BATCH, PROMPT, cfg.d_inner, cfg.ssm_state)
     args = inputs(*shape, torch.bfloat16, falcon_a=True)
     check(shape, args, "falcon s4d")
@@ -470,14 +511,15 @@ def check_mamba_scan(torch, cfg):
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    sfu_ms = updates / (SMS * SFU_EXP_PER_CLOCK * MAX_SM_CLOCK_HZ) * 1e3
     emit("kernels.mamba_scan", case=list(shape), x_dtype="bfloat16", ms=ms, plain_ms=plain_ms,
          library_ms=None, updates=updates, flop=flops, bytes=n_bytes, bytes_bound_ms=bytes_ms,
          f32_ops_bound_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by,
-         sfu_exp_bound_ms=updates / (SMS * SFU_EXP_PER_CLOCK * MAX_SM_CLOCK_HZ) * 1e3,
-         achieved_gb_per_s=n_bytes / ms / 1e6)
+         sfu_exp_bound_ms=sfu_ms, achieved_gb_per_s=n_bytes / ms / 1e6,
+         share_of_bound=bound_ms / ms, share_of_sfu_floor=sfu_ms / ms)
     del args
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": list(shape)}
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms, "shape": list(shape)}
 
 
 # --------------------------------------------------------------------------
@@ -750,6 +792,7 @@ def main() -> int:
          "max_abs_err": k4["max_abs_err"], "tol": "y and h_last |err| <= 1e-4 + 1e-4|ref|",
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
+         "share_of_bound": k4["share_of_bound"],
          "per": f"one launch (one layer) at (B, S, D, N) = {k4['shape']}, x bf16"},
     ]
     for kern in kernels:

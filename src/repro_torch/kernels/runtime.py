@@ -29,8 +29,8 @@ SOURCES = {
     "mamba_scan": _KERNELS / "mamba_scan" / "csrc" / "mamba_scan.cu",
 }
 # IEEE division and accurate expf: no --use_fast_math (block_quant's codes
-# would flip at .5 boundaries; flash_attention is held to 2e-5 in f32, and
-# mamba_scan to 1e-4 after 8192 steps of exp-decayed state).
+# would flip at .5 boundaries; flash_attention is held to 2e-5 in f32).  A
+# kernel that wants the SFU's ex2.approx calls it itself, as mamba_scan does.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -19,17 +19,11 @@ Needs the card, nvcc and the rest of the repository beside it.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "src"))
+from _ablation import build_variants, replace as _replace, time_in_turns
 
 SHAPE = (2, 8192, 8192, 32, 8, 80, True, 4096)  # (B, Sq, Skv, H, KVH, D, causal, window)
 
@@ -37,12 +31,6 @@ SHAPE = (2, 8192, 8192, 32, 8, 80, True, 4096)  # (B, Sq, Skv, H, KVH, D, causal
 def _between(src: str, start: str, end: str, new: str) -> str:
     a, z = src.index(start), src.index(end)
     return src[:a] + new + src[z:]
-
-
-def _replace(src: str, old: str, new: str) -> str:
-    if old not in src:
-        raise SystemExit(f"k3_ablation: the source no longer holds {old.strip()!r}")
-    return src.replace(old, new)
 
 
 VARIANTS = {
@@ -72,27 +60,10 @@ def main() -> int:
         print("k3_ablation: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import kernel, ref
 
-    src = runtime.SOURCES["flash_attention"].read_text()
-    out = ROOT / "build" / "k3_ablation"
-    out.mkdir(parents=True, exist_ok=True)
-
-    def build(name):
-        cu, so = out / f"{name}.cu", out / f"{name}.so"
-        cu.write_text(VARIANTS[name](src))
-        done = subprocess.run([runtime.nvcc_path(), *runtime.NVCC_FLAGS, "-o", str(so), str(cu)],
-                              capture_output=True, text=True)
-        if done.returncode:
-            raise SystemExit(f"k3_ablation: nvcc failed for {name}:\n{done.stdout}{done.stderr}")
-        lib = ctypes.CDLL(str(so))
-        lib.fa_forward.argtypes = kernel._SIGNATURES["fa_forward"]
-        lib.fa_forward.restype = ctypes.c_int
-        return name, lib
-
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(pool.map(build, VARIANTS))
+    libs = build_variants("k3_ablation", "flash_attention", "fa_forward",
+                          kernel._SIGNATURES["fa_forward"], VARIANTS)
 
     b, sq, skv, h, kvh, d, causal, window = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -110,12 +81,10 @@ def main() -> int:
         if err:
             raise SystemExit(f"k3_ablation: launch failed with CUDA error {err}")
 
-    order = list(VARIANTS) + list(VARIANTS)[::-1]
-    times = {name: [] for name in VARIANTS}
-    for name in order:
-        times[name].append(cs.time_ms(torch, lambda: run(libs[name]), reps=20, warmup=3))
+    times = time_in_turns(torch, {name: (lambda lib=lib: run(lib))
+                                  for name, (lib, _) in libs.items()})
     print(cs.nvidia_smi(), flush=True)
-    for name, lib in libs.items():
+    for name, (lib, _) in libs.items():
         run(lib)
         torch.cuda.synchronize()
         excess = float(((o.float() - expect).abs() - 1e-2 * expect.abs()).max())
