@@ -26,16 +26,31 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
   7. profile_ssm a second falcon prefill and 4 decode steps under
               torch.profiler: K4's and the GEMMs' share of prefill device
               time, and decode's idle share;
-  8. reference the reduced models (danube, qwen3, falcon-mamba) on the card
-              against the plain path on the CPU;
+  8. train_step the DaeMon training step of h2o-danube-1.8b at full width and
+              depth, batch 2 x 4096 from the token pipeline, under
+              DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
+              K2 must launch 18 times a step (11 folded gradients, 7 working-
+              copy weights), K3 and K4 never; falling losses, a live residual,
+              and a working copy equal to the plain int8 round trip;
+  9. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+              global_batch=2, seq_len=4096, movement="daemon"), which runs
+              DAEMON_DEFAULT and so launches no kernel;
+ 10. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+              have to differentiate (the kernels are forward-only);
+ 11. reference the reduced models (danube, qwen3, falcon-mamba) on the card
+              against the plain path on the CPU, and 3 DAEMON_AGGRESSIVE train
+              steps of reduced danube from the same state and batches;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-7) and read just after; launches made to compare a kernel
+main-path phase (4-9) and read just after; launches made to compare a kernel
 with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import math
 import re
@@ -61,6 +76,9 @@ SMS, SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 132, 16, 1.98e9
 ARCH = "h2o-danube-1.8b"
 SSM_ARCH = "falcon-mamba-7b"
 BATCH, PROMPT, GEN = 2, 8192, 16
+TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
+TRAIN_STEPS = 4  # timed, then one more under the profiler
+LOSS_RTOL = 1e-3  # tests/test_torch_train.py's loss tolerance (card vs CPU here)
 SEED = 0
 
 # (B, Sq, Skv, H, KVH, D, causal, window): tests/test_kernels.py's five
@@ -138,9 +156,12 @@ def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return total
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, ops=()) -> dict:
     """Run ``fn`` under torch.profiler: wall time, summed kernel time, the
-    device's busy share of the wall time, and the kernels that took most."""
+    device's busy share of the wall time, the kernels that took most, the
+    device time of the kernels each CPU op or named range in ``ops``
+    launched through PyTorch (not K1/K2's, launched through ctypes), and the
+    device-side span of each named range."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -151,24 +172,39 @@ def device_profile(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU launch event carries its kernel's time too
     cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+
+    def annotation(e):  # a named range's device-side span, not a kernel
+        return getattr(e, "is_user_annotation", False) or e.key in ops
+
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages() if e.device_type == cuda),
+                      for e in averages if e.device_type == cuda and not annotation(e)),
                      key=lambda k: -k[1])
+    op_ms = {e.key: e.device_time_total / 1e3 for e in averages
+             if e.key in ops and e.device_type != cuda}
+    span_ms = {e.key: e.self_device_time_total / 1e3 for e in averages
+               if e.key in ops and e.device_type == cuda}
     busy_ms = sum(ms for _, ms, _ in kernels)
 
     def share(*marks):
         return sum(ms for name, ms, _ in kernels if any(m in name.lower() for m in marks))
 
     flash_ms, scan_ms = share("flash_forward"), share("scan_kernel")
+    quant_ms = share("quantize_kernel")  # K1 and K2 (dequantize_kernel)
     matmul_ms = share("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "flash_kernel_ms": flash_ms, "scan_kernel_ms": scan_ms, "matmul_ms": matmul_ms,
-            "share_of_device_time": {k: ms / busy_ms if busy_ms else None for k, ms in
-                                     (("flash", flash_ms), ("scan", scan_ms),
-                                      ("matmul", matmul_ms))},
-            "kernel_launches": sum(n for _, _, n in kernels),
-            "top_kernels": [[name[:80], ms, n] for name, ms, n in kernels[:6]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+           "flash_kernel_ms": flash_ms, "scan_kernel_ms": scan_ms, "block_quant_ms": quant_ms,
+           "matmul_ms": matmul_ms,
+           "share_of_device_time": {k: ms / busy_ms if busy_ms else None for k, ms in
+                                    (("flash", flash_ms), ("scan", scan_ms),
+                                     ("block_quant", quant_ms), ("matmul", matmul_ms))},
+           "kernel_launches": sum(n for _, _, n in kernels),
+           "top_kernels": [[name[:80], ms, n] for name, ms, n in kernels[:6]]}
+    if ops:
+        out["device_ms_by_op"] = {name: op_ms.get(name, 0.0) for name in ops}
+        out["device_span_ms_by_range"] = span_ms
+    return out
 
 
 def nvidia_smi() -> str:
@@ -184,29 +220,58 @@ def nvidia_smi() -> str:
 # --------------------------------------------------------------------------
 
 
-def page_class_shapes(cfg):
-    """The 2-D shapes working_copy hands K1/K2 under int8: every page-class
-    weight flattened to (L * d_in, d_out)."""
-    from repro_torch.core.movement.daemon_step import is_page_class
+def _flat_shapes(cfg, keep):
+    """The 2-D shapes K1/K2 see for the leaves ``keep`` selects: each tensor
+    flattened to (prod of leading dims, last dim)."""
     from repro_torch.models import model as M
     from repro_torch.models import nn
 
     return [(int(math.prod(s.shape[:-1])), s.shape[-1])
-            for s in nn.tree_leaves(M.model_specs(cfg)) if is_page_class(s.shape)]
+            for s in nn.tree_leaves(M.model_specs(cfg)) if keep(tuple(s.shape))]
+
+
+def page_class_shapes(cfg):
+    """The shapes working_copy hands K1/K2 under int8: every page-class weight."""
+    from repro_torch.core.movement.daemon_step import is_page_class
+
+    return _flat_shapes(cfg, is_page_class)
+
+
+def fold_only_shapes(cfg):
+    """The shapes only the int8 gradient fold hands K1/K2: the foldable
+    gradients that are not page class (embed, lm_head, the stacked norms)."""
+    from repro_torch.core.movement.daemon_step import is_foldable, is_page_class
+
+    return _flat_shapes(cfg, lambda s: is_foldable(s) and not is_page_class(s))
+
+
+def add_times(acc: dict, prefix: str, ms: float, plain_ms: float, bound_ms: float,
+              times: int = 1) -> None:
+    acc[prefix + "ms"] += times * ms
+    acc[prefix + "plain_ms"] += times * plain_ms
+    acc[prefix + "bound_ms"] += times * bound_ms
 
 
 def check_block_quant(torch, cfg):
     """K1/K2 against the plain version on the same inputs, bit for bit: both
     sides do the same IEEE f32 division, half-to-even rounding, product and
-    round-to-nearest-even cast, so any difference is a kernel fault."""
+    round-to-nearest-even cast, so any difference is a kernel fault.
+
+    The shapes are every one the main path gives them: the page-class
+    weights (serving's int8 copy and the training working copy: f32 in, bf16
+    out) and every foldable gradient (the fold: f32 in, f32 out), plus a
+    ragged one.  ``ms``/``plain_ms``/``bound_ms`` sum the working copy's 7
+    launches; ``train_step_*`` sum a training step's 18 (7 + 11 folded)."""
     from repro_torch.kernels.block_quant import kernel, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    k1 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "train_step_ms": 0.0, "train_step_plain_ms": 0.0, "train_step_bound_ms": 0.0}
     k2 = dict(k1)
-    slice_shapes = page_class_shapes(cfg)
+    slice_shapes, fold_shapes = page_class_shapes(cfg), fold_only_shapes(cfg)
     cases = [(s, dt) for s in slice_shapes for dt in (torch.float32, torch.bfloat16)]
+    cases += [(s, torch.float32) for s in fold_shapes]
     cases += [((300, 256), torch.float32), ((300, 256), torch.bfloat16)]
     for shape, dt in cases:
         x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dt)
@@ -219,8 +284,8 @@ def check_block_quant(torch, cfg):
         require(torch.equal(s, s_ref), f"K1 {shape} {dt}: scales differ by up to {scale_err}")
         row = {"shape": list(shape), "dtype": str(dt).replace("torch.", ""),
                "k1_code_flips": code_flips, "k1_scale_err": scale_err}
-        out_dt = torch.bfloat16  # what working_copy asks K2 for
-        for k2_dt in (out_dt, torch.float32):
+        # working_copy asks K2 for bf16, the fold for f32
+        for k2_dt in (torch.bfloat16, torch.float32):
             x_k2 = kernel.dequantize(q, s, k2_dt)
             expect = ref.dequantize_ref(q, s, k2_dt)
             deq_err = float((x_k2.float() - expect.float()).abs().max())
@@ -230,21 +295,29 @@ def check_block_quant(torch, cfg):
             k2["max_abs_err"] = max(k2["max_abs_err"], deq_err)
             del x_k2, expect
         k1["max_abs_err"] = max(k1["max_abs_err"], float(code_diff))
-        if shape in slice_shapes and dt == torch.float32:
-            # the main path quantizes the f32 master and dequantizes to bf16
+        if dt == torch.float32 and shape in slice_shapes + fold_shapes:
+            # a training step quantizes this shape once in the fold (K2 to
+            # f32) and, if it is page class, once in the working copy (K2 to
+            # bf16, as serving's int8 copy does)
+            copied = shape in slice_shapes
             n = x.numel()
             t1 = time_ms(torch, lambda: kernel.quantize(x))
             p1 = time_ms(torch, lambda: ref.quantize_ref(x))
-            t2 = time_ms(torch, lambda: kernel.dequantize(q, s, out_dt))
-            p2 = time_ms(torch, lambda: ref.dequantize_ref(q, s, out_dt))
             b1 = (4 * n + n + 4 * n // 128) / HBM_BYTES_PER_S * 1e3
-            b2 = (n + 4 * n // 128 + 2 * n) / HBM_BYTES_PER_S * 1e3
-            for acc, t, p, b in ((k1, t1, p1, b1), (k2, t2, p2, b2)):
-                acc["ms"] += t
-                acc["plain_ms"] += p
-                acc["bound_ms"] += b
-            row.update(k1_ms=t1, k1_plain_ms=p1, k1_bound_ms=b1,
-                       k2_ms=t2, k2_plain_ms=p2, k2_bound_ms=b2)
+            row.update(k1_ms=t1, k1_plain_ms=p1, k1_bound_ms=b1)
+            add_times(k1, "train_step_", t1, p1, b1, times=1 + copied)
+            if copied:
+                add_times(k1, "", t1, p1, b1)
+            for k2_dt, out_bytes in ((torch.float32, 4), (torch.bfloat16, 2))[:1 + copied]:
+                t2 = time_ms(torch, lambda: kernel.dequantize(q, s, k2_dt))
+                p2 = time_ms(torch, lambda: ref.dequantize_ref(q, s, k2_dt))
+                b2 = (n + 4 * n // 128 + out_bytes * n) / HBM_BYTES_PER_S * 1e3
+                tag = str(k2_dt).replace("torch.", "")
+                row.update({f"k2_{tag}_out_ms": t2, f"k2_{tag}_out_plain_ms": p2,
+                            f"k2_{tag}_out_bound_ms": b2})
+                add_times(k2, "train_step_", t2, p2, b2)
+                if k2_dt == torch.bfloat16:
+                    add_times(k2, "", t2, p2, b2)
         emit("kernels.block_quant", **row)
         del x, q, s, q_ref, s_ref
     z = torch.zeros(8, 256, device=dev)
@@ -252,7 +325,8 @@ def check_block_quant(torch, cfg):
     require(int(qz.abs().sum()) == 0 and float(sz.abs().sum()) == 0, "K1: zero block")
     require(float(kernel.dequantize(qz, sz).abs().sum()) == 0, "K2: zero block")
     emit("kernels.block_quant", zero_block="ok",
-         slice_tensors=[list(s) for s in slice_shapes])
+         slice_tensors=[list(s) for s in slice_shapes],
+         fold_only_tensors=[list(s) for s in fold_shapes])
     return k1, k2
 
 
@@ -664,6 +738,255 @@ def run_int8_copy(torch, runtime, cfg):
     return launches
 
 
+def train_flop(cfg, batch: int, seq: int) -> dict:
+    """Model FLOP of one training step, written out: 6 N per token for the
+    weights (forward 2, backward 4; N every parameter, as 6·N·tokens counts
+    it) plus attention's QK^T and PV products, 4·B·H·dh per (q, k) pair the
+    mask keeps, three times over (forward and backward), per layer.  The
+    recompute of a rematerialised layer is not model FLOP."""
+    from repro_torch.models import model as M
+
+    n = M.param_count(cfg)
+    window = cfg.window if cfg.attn_kind == "swa" else 0
+    pairs = band_pairs(seq, seq, True, window)
+    weights = 6 * n * batch * seq
+    attention = 3 * 4 * batch * cfg.num_heads * cfg.head_dim * pairs * cfg.num_layers
+    return {"params": n, "weights_flop": weights, "attention_flop": attention,
+            "attention_pairs_per_row_batch": pairs, "model_flop": weights + attention}
+
+
+def free_memory(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_step(torch, runtime, cfg):
+    """The DaeMon training step at full width: make_train_step(cfg,
+    movement="daemon", movement_cfg=DAEMON_AGGRESSIVE), batch 2 x 4096 from
+    the port's TokenPipeline (seed 0), 4 timed steps then one profiled.
+
+    The hashed tokens are random and each step's batch is new, so at vocab
+    32000 two effective updates (step 1's lr is 0) move a new batch's loss
+    by less than the batch-to-batch spread (~0.02).  That training lowers
+    the loss is held where it shows: the first batch, whose gradient entered
+    every update through AdamW's first moment, is taken again under the
+    final working copy.  Its numbers are printed before any check fails."""
+    from repro_torch.core import movement as mv
+    from repro_torch.core.movement.daemon_step import is_foldable, is_page_class
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.block_quant import ref as bq_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    dev = torch.device("cuda")
+    batch_size = BATCH
+    master = nn.init_params(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = mv.init_state(master)
+    params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
+    del master
+    step = steps.make_train_step(cfg, total_steps=TRAIN_STEPS, movement="daemon",
+                                 movement_cfg=mv.DAEMON_AGGRESSIVE)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    global_batch=batch_size, seed=SEED))
+    folded = sum(is_foldable(tuple(p.shape)) for p in nn.tree_leaves(params))
+    copied = sum(is_page_class(tuple(p.shape)) for p in nn.tree_leaves(params))
+    want = {"block_quant.quantize": folded + copied, "block_quant.dequantize": folded + copied,
+            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    require(folded + copied == 18, f"train_step: {folded} folded + {copied} copied tensors, not 18")
+
+    losses, times, per_step, batches = [], [], [], []
+
+    def one_step():
+        nonlocal params, state
+        batches.append({k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()})
+        params, state, metrics = step(params, state, batches[-1])
+        return metrics
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(TRAIN_STEPS):
+            runtime.reset_launches()
+            t0 = time.perf_counter()
+            metrics = one_step()
+            losses.append(float(metrics["loss"]))  # waits for the step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append(dict(runtime.LAUNCHES))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        runtime.reset_launches()
+        prof = device_profile(torch, lambda: losses.append(float(one_step()["loss"])),
+                              ops=("aten::mm", "aten::bmm", "aten::_softmax",
+                                   "aten::_softmax_backward_data", "daemon_step.grads",
+                                   "daemon_step.fold", "daemon_step.adamw",
+                                   "daemon_step.working_copy"))
+        per_step.append(dict(runtime.LAUNCHES))
+    finally:
+        pipe.close()
+    with torch.no_grad():  # the first batch again, through the same training forward
+        first_again = float(M.loss_fn(cfg, params, batches[0])[0])
+    residual = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
+
+    tokens = batch_size * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    flop = train_flop(cfg, batch_size, TRAIN_SEQ)
+    ops, spans = prof.pop("device_ms_by_op"), prof.pop("device_span_ms_by_range")
+    breakdown = {
+        "device_busy_ms": prof["device_busy_ms"],
+        "weight_and_head_gemms_ms (aten::mm)": ops["aten::mm"],
+        "attention_products_ms (aten::bmm: forward, recompute, backward)": ops["aten::bmm"],
+        "attention_softmax_ms (forward, recompute, backward)":
+            ops["aten::_softmax"] + ops["aten::_softmax_backward_data"],
+        "block_quant_ms (K1 + K2)": prof["block_quant_ms"],
+        "fold_aten_ms (the fold's PyTorch ops; K1/K2 apart)": ops["daemon_step.fold"],
+        "adamw_ms": ops["daemon_step.adamw"],
+        "working_copy_aten_ms (K1/K2 apart)": ops["daemon_step.working_copy"],
+        "device_span_ms (first to last kernel of each range on the device; grads: the "
+        "forward and loss, the backward runs on autograd's thread)": spans,
+        "host_idle_share": prof["device_idle_share"],
+    }
+    emit("train_step", arch=cfg.name, batch=batch_size, seq_len=TRAIN_SEQ,
+         tokens_per_step=tokens, movement="daemon (DAEMON_AGGRESSIVE)", steps=TRAIN_STEPS,
+         losses=losses, first_batch_loss_after_training=first_again,
+         last_below_first=losses[TRAIN_STEPS - 1] < losses[0],
+         step_s_each=times, step_s=step_s, tokens_per_s=tokens / step_s,
+         peak_memory_gb=peak_gb, **flop,
+         train_mfu=flop["model_flop"] / step_s / BF16_FLOP_PER_S,
+         mfu_peak="989 TFLOP/s bf16 (H100 SXM data sheet)",
+         residual_abs_sum=residual, launches_per_step=per_step,
+         nvidia_smi=nvidia_smi())
+    emit("train_step", part="one profiled step (the profiler slows the host)",
+         breakdown=breakdown, **prof)
+
+    for i, launches in enumerate(per_step):
+        require(launches == want, f"train_step {i}: launches {launches}, not {want}")
+    require(all(math.isfinite(x) for x in losses + [first_again]),
+            f"train_step: non-finite losses {losses}, {first_again}")
+    require(first_again < losses[0], f"train_step: training did not lower the first batch's "
+                                     f"loss: {losses[0]} -> {first_again}")
+    require(residual > 0, "train_step: the error-feedback residual is zero")
+    # the working copy is the plain version of the master's: the int8 round
+    # trip of each page-class weight, a bf16 cast of the rest, bit for bit
+    with torch.no_grad():
+        for w, m in zip(nn.tree_leaves(params), nn.tree_leaves(state.master)):
+            if is_page_class(tuple(m.shape)):
+                expect = bq_ref.dequantize_ref(*bq_ref.quantize_ref(m), torch.bfloat16)
+            else:
+                expect = m.to(torch.bfloat16)
+            require(torch.equal(w, expect),
+                    f"train_step: a working-copy leaf of shape {tuple(m.shape)} differs "
+                    "from the plain version of the master's")
+            del expect
+    emit("train_step", working_copy="page-class leaves == dequantize_ref(quantize_ref(master)), "
+                                    "others == master.to(bf16), bit for bit: ok")
+    check_fold(torch, cfg, params, state.residual, batches[-1])
+    total = {k: sum(launches[k] for launches in per_step) for k in runtime.LAUNCHES}
+    del params, state, batches
+    free_memory(torch)
+    return total
+
+
+def check_fold(torch, cfg, params, residual, batch):
+    """The int8 fold at full width on real gradients: one more step's grads
+    under the final working copy and the live residual go through
+    ``daemon_step.fold`` (K1/K2 on every foldable leaf) and through its plain
+    version; the gradient that arrives and the new residual must be equal bit
+    for bit.  Its launches are a comparison's, not the main path's."""
+    from repro_torch.core.movement.daemon_step import fold, is_foldable
+    from repro_torch.kernels.block_quant import ref as bq_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import nn
+
+    grads, _ = steps._value_and_grad(cfg, params, batch)
+    folded, worst = 0, {"arrived": 0.0, "residual": 0.0}
+    with torch.no_grad():
+        for g, r in zip(nn.tree_leaves(grads), nn.tree_leaves(residual)):
+            if not is_foldable(tuple(g.shape)):
+                continue
+            g32 = g.to(torch.float32) + r
+            expect = bq_ref.dequantize_ref(*bq_ref.quantize_ref(g32), torch.float32)
+            r_k = r.clone()
+            arrived = fold(g, r_k)
+            for key, got, want in (("arrived", arrived, expect), ("residual", r_k, g32 - expect)):
+                err = float((got - want).abs().max())
+                worst[key] = max(worst[key], err)
+                require(torch.equal(got, want), f"train_step fold {tuple(g.shape)}: the {key} "
+                                                f"gradient differs from the plain fold by {err}")
+            folded += 1
+            del g32, expect, r_k, arrived
+    del grads
+    require(folded == 11, f"train_step fold: {folded} foldable gradients, not 11")
+    emit("train_step", fold_check=f"{folded} folded gradients at full width == the plain fold "
+                                  "(dequantize_ref(quantize_ref(g + r)), g + r - that), "
+                                  "bit for bit: ok", max_abs_err=worst)
+
+
+def run_train(torch, runtime):
+    """The training entry point itself at full width; it runs DAEMON_DEFAULT, as
+    JAX's train() does, so no kernel launches."""
+    from repro_torch.launch.train import train
+
+    runtime.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):  # its per-step lines go on this phase's line
+        params, state, losses = train(ARCH, reduced=False, steps=3, global_batch=BATCH,
+                                      seq_len=TRAIN_SEQ, movement="daemon", log_every=1,
+                                      seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.LAUNCHES)
+    require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+            f"train: losses {losses}")
+    require(not any(launches.values()), f"train: DAEMON_DEFAULT launched kernels: {launches}")
+    emit("train", arch=ARCH, batch=BATCH, seq_len=TRAIN_SEQ, steps=3, losses=losses,
+         wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, log=log.getvalue().splitlines(),
+         note="train() runs DAEMON_DEFAULT (bf16 gradients, bf16 working copy), as JAX's "
+              "does: no kernel launches; log holds its per-step lines (s/step is the mean "
+              "over the steps so far, the first step's first-call set-up included)")
+    del params, state
+    free_memory(torch)
+    return launches
+
+
+def run_autograd_guard(torch):
+    """K3 and K4 are forward-only, as the Pallas kernels are: their wrappers
+    must refuse a CUDA call that autograd would differentiate.  Without the
+    guard such a call returns an output with no grad_fn (shown here on the
+    kernel itself), and the inputs would get no gradient without a word."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba_scan import selective_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(1, 128, h, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+               .requires_grad_() for h in (4, 2, 2))
+    bare = fa_kernel.forward(q, k, v, causal=True, window=0)
+    refused = {}
+    for name, call in (("flash_attention", lambda: flash_attention(q, k, v)),
+                       ("selective_scan", lambda: selective_scan(
+                           *(torch.rand(*shape, device=dev, requires_grad=True)
+                             for shape in ((1, 64, 32), (32, 4), (1, 64, 4), (1, 64, 4),
+                                           (1, 64, 32)))))):
+        try:
+            call()
+        except RuntimeError as e:
+            refused[name] = str(e)
+    require(set(refused) == {"flash_attention", "selective_scan"},
+            f"autograd_guard: calls not refused: {sorted({'flash_attention', 'selective_scan'} - set(refused))}")
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    require(out.shape == q.shape, "autograd_guard: no_grad call failed")
+    emit("autograd_guard", refused=refused,
+         kernel_output_without_guard={"requires_grad": bare.requires_grad,
+                                      "grad_fn": None if bare.grad_fn is None
+                                      else type(bare.grad_fn).__name__})
+
+
 def run_reference(torch):
     """The reduced model, same weights and prompt, on the card (kernels) and on
     the CPU (plain versions): prefill logits and 4 decode steps."""
@@ -696,6 +1019,48 @@ def run_reference(torch):
         worst[arch] = max(float((a - b).abs().max()) for a, b in zip(outs["cpu"], outs["cuda"]))
         require(worst[arch] <= tol, f"{arch} reduced: card vs CPU logits differ by {worst[arch]}")
     emit("reference", max_logit_diff_card_vs_cpu=worst, tol=tol)
+    run_reference_train(torch)
+
+
+def run_reference_train(torch):
+    """3 DAEMON_AGGRESSIVE train steps of the reduced danube (SWA window 16 <
+    seq 64) on the card (K1/K2 in the fold and the working copy, nn.attention
+    in the loss) and on the CPU (plain versions), from the same state and
+    batches: the losses agree within the CPU parity tests' LOSS_RTOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import movement as mv
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    cfg = get_config(ARCH).reduced()
+    master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
+                            torch.device("cpu"))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+                                    seed=SEED))
+    batches = [pipe.batch_at(i) for i in range(3)]
+    pipe.close()
+    losses, residual = {}, {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        # a copy each: the step updates the master in place
+        state = mv.init_state(nn.tree_map(lambda t: t.to(dev, copy=True), master))
+        params = mv.working_copy(state.master, mv.DAEMON_AGGRESSIVE)
+        step = steps.make_train_step(cfg, total_steps=3, movement="daemon",
+                                     movement_cfg=mv.DAEMON_AGGRESSIVE)
+        losses[name] = []
+        for b in batches:
+            params, state, m = step(params, state,
+                                    {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+            losses[name].append(float(m["loss"]))
+        residual[name] = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    require(rel <= LOSS_RTOL, f"reduced danube training: card vs CPU losses differ by {rel} "
+                              f"(relative): {losses}")
+    require(residual["cuda"] > 0, "reduced danube training: the residual is zero on the card")
+    emit("reference", part="3 DAEMON_AGGRESSIVE train steps, reduced danube", losses=losses,
+         max_relative_loss_diff_card_vs_cpu=rel, tol=LOSS_RTOL, residual_abs_sum=residual)
 
 
 def main() -> int:
@@ -742,6 +1107,10 @@ def main() -> int:
     per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", SSM_ARCH, "mamba_scan.forward")
     torch.cuda.empty_cache()
     per_phase["profile_ssm"] = run_ssm_profile(torch, runtime, ssm_cfg)
+    free_memory(torch)
+    per_phase["train_step"] = run_train_step(torch, runtime, cfg)
+    per_phase["train"] = run_train(torch, runtime)
+    run_autograd_guard(torch)
     run_reference(torch)
 
     src = "src/repro_torch/kernels"
@@ -761,7 +1130,10 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "tol": "codes and scales equal",
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "per": "sum over the 7 stacked danube weights, f32 in"},
+         "train_step_ms": k1["train_step_ms"], "train_step_plain_ms": k1["train_step_plain_ms"],
+         "train_step_bound_ms": k1["train_step_bound_ms"],
+         "per": "sum over the 7 stacked danube weights, f32 in; train_step_*: over a "
+                "training step's 18 launches, the 11 folded gradients and the 7 weights"},
         {"name": "block_quant.dequantize (K2)", "route": "cuda",
          "source": f"{src}/block_quant/csrc/block_quant.cu",
          "replaces": "src/repro/kernels/block_quant/block_quant.py:37",
@@ -770,7 +1142,10 @@ def main() -> int:
          "max_abs_err": k2["max_abs_err"], "tol": "bit-identical",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "per": "sum over the 7 stacked danube weights, bf16 out"},
+         "train_step_ms": k2["train_step_ms"], "train_step_plain_ms": k2["train_step_plain_ms"],
+         "train_step_bound_ms": k2["train_step_bound_ms"],
+         "per": "sum over the 7 stacked danube weights, bf16 out; train_step_*: over a "
+                "training step's 18 launches, f32 out for the 11 folded gradients"},
         {"name": "flash_attention.forward (K3)", "route": "cuda",
          "source": f"{src}/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:29",

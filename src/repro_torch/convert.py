@@ -1,5 +1,5 @@
-"""Load a parameter (or cache) tree held as numpy arrays, such as the JAX
-package's, into the port's nested dict of tensors."""
+"""Load a parameter, cache or optimizer-state tree held as numpy arrays, such
+as the JAX package's, into the port's nested dicts of tensors."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -7,7 +7,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.movement.daemon_step import DaemonState
 from repro_torch.models import nn
+from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None) -> Any:
@@ -27,3 +29,18 @@ def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None) ->
         return t.to(target) if target is not None else t
 
     return nn.tree_map(one, tree)
+
+
+def adamw_state_from_numpy(state: Any, device) -> AdamWState:
+    """An AdamW state with fields ``step``, ``m`` and ``v`` (JAX's
+    ``AdamWState`` mapped to numpy) as the port's."""
+    return AdamWState(torch.tensor(np.asarray(state.step), dtype=torch.int32, device=device),
+                      params_from_numpy(state.m, device), params_from_numpy(state.v, device))
+
+
+def daemon_state_from_numpy(state: Any, device) -> DaemonState:
+    """A DaeMon training state with fields ``adam``, ``master`` and
+    ``residual`` (JAX's ``DaemonState`` mapped to numpy) as the port's."""
+    return DaemonState(adamw_state_from_numpy(state.adam, device),
+                       params_from_numpy(state.master, device),
+                       params_from_numpy(state.residual, device))

@@ -1,4 +1,9 @@
-from repro_torch.core.movement.daemon_step import working_copy
+from repro_torch.core.movement.daemon_step import (
+    DaemonState,
+    init_state,
+    make_daemon_train_step,
+    working_copy,
+)
 from repro_torch.core.movement.engine import (
     BASELINE,
     DAEMON_AGGRESSIVE,
@@ -8,7 +13,7 @@ from repro_torch.core.movement.engine import (
 )
 
 __all__ = [
-    "working_copy",
+    "DaemonState", "init_state", "make_daemon_train_step", "working_copy",
     "BASELINE", "DAEMON_AGGRESSIVE", "DAEMON_DEFAULT", "MovementConfig",
     "SelectionUnit",
 ]

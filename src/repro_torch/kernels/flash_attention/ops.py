@@ -6,12 +6,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, D) in q's dtype."""
+    """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, D) in q's dtype.
+    Forward only on the card, as the Pallas kernel is: a CUDA call that
+    autograd would have to differentiate raises (training attends through
+    ``models.nn.attention``)."""
     if q.is_cuda:
+        runtime.forward_only("flash_attention (K3)", q, k, v)
         return kernel.forward(q, k, v, causal=causal, window=window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
@@ -108,6 +110,17 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def forward_only(kernel: str, *inputs) -> None:
+    """Raise if autograd would have to differentiate through ``kernel``: its
+    output would carry no ``grad_fn``, and the inputs would get no gradient
+    without a word.  The kernels have no backward, as the Pallas ones have none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{kernel} is forward-only, as the Pallas kernel is: call it under "
+            "torch.no_grad() or on inputs that do not require grad"
+        )
 
 
 def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:

@@ -2,12 +2,14 @@
 families.
 
     model_specs(cfg)            -> ParamSpec tree (single source of truth)
+    loss_fn(cfg, params, batch) -> (loss, metrics)      [train, dense only]
     prefill(cfg, params, batch) -> (last_logits, cache) [inference-prefill]
     decode_step(cfg, params, cache, token, pos)         [inference-decode]
     cache_specs(cfg, batch, seq_len)
 
-The other families, and ``loss_fn``, raise or are absent until their ROADMAP
-items land.
+The cross-entropy is computed in sequence chunks against the head, so the
+full (B, S, V) logits are never materialized.  The other families raise until
+their ROADMAP items land.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.models import mamba, nn, transformer
 from repro_torch.models.nn import ParamSpec
 from repro_torch.models.transformer import _layer
 
+LOSS_CHUNK = 256
 COMPUTE_DTYPE = torch.bfloat16
 
 _NOT_PORTED = {
@@ -37,6 +40,15 @@ def _check_ported(cfg: ModelConfig) -> None:
                 f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
             )
         raise ValueError(cfg.family)
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    _check_ported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training family {cfg.family!r} is not ported yet: ROADMAP Queue 1 item 18 "
+            "(SSM training: the chunked scan, since kernel K4 is forward-only)"
+        )
 
 
 # --------------------------------------------------------------------------
@@ -93,9 +105,12 @@ def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
-                   make_cache: bool = False):
+                   training: bool = False, make_cache: bool = False):
     """Returns (hidden, cache, aux_loss)."""
-    _check_ported(cfg)
+    if training:
+        _check_trainable(cfg)
+    else:
+        _check_ported(cfg)
     x = _embed(cfg, params, batch["tokens"])
     if cfg.family == "ssm":
         layer_caches = []
@@ -109,9 +124,48 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
         return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, make_cache=make_cache)
+    x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, training=training,
+                                              make_cache=make_cache)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, cache, aux
+
+
+# --------------------------------------------------------------------------
+# chunked cross-entropy loss
+# --------------------------------------------------------------------------
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, training: bool = True,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """-> (loss, metrics).  Cross-entropy over ``LOSS_CHUNK`` positions at a
+    time (one chunk when the sequence does not divide), with f32 logits from
+    bf16 operands as in ``logits_at``; labels < 0 are masked; a z-loss on
+    logsumexp.  ``metrics`` hold detached values: loss, ce, aux, tokens."""
+    _check_trainable(cfg)
+    hidden, _, aux = forward_hidden(cfg, params, batch, training=training)
+    labels = batch["labels"].long()
+    w = _head_weight(cfg, params).to(COMPUTE_DTYPE).to(torch.float32)
+
+    s = hidden.shape[1]
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        chunk = s
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    nll_sum, z_sum, cnt = zero, zero, zero
+    for i in range(0, s, chunk):
+        h_c, l_c = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        logits = torch.matmul(h_c.to(COMPUTE_DTYPE).to(torch.float32), w)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, l_c.clamp_min(0)[..., None])[..., 0]
+        mask = (l_c >= 0).to(torch.float32)
+        nll_sum = nll_sum + ((logz - ll) * mask).sum()
+        z_sum = z_sum + (logz.square() * mask).sum()
+        cnt = cnt + mask.sum()
+    cnt = cnt.clamp_min(1.0)
+    ce = nll_sum / cnt
+    loss = ce + z_weight * z_sum / cnt + aux_weight * aux
+    metrics = {"loss": loss.detach(), "ce": ce.detach(), "aux": aux.detach(), "tokens": cnt}
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------

@@ -29,11 +29,12 @@ class ParamSpec(NamedTuple):
         return ParamSpec((n,) + self.shape, (axis_name,) + self.axes, self.init, self.scale)
 
 
-def tree_map(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
-    """Map over the leaves of a nested dict (tensors, arrays or specs)."""
+def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
+    """Map over the leaves of a nested dict (tensors, arrays or specs); with
+    ``rest``, ``fn`` takes the leaf at the same path of every tree."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 spec_tree_map = tree_map  # the JAX package's name: spec trees are nested dicts too
@@ -44,6 +45,19 @@ def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
+    """The tree of ``like``'s structure holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
 
 
 def stack_specs(specs: PyTree, n: int) -> PyTree:
@@ -126,7 +140,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # --------------------------------------------------------------------------
 # attention — memory-bounded chunked softmax attention (port of the XLA
 # path).  Prefill goes through the flash kernel (kernels/flash_attention);
-# this version serves the decode step over a part-filled cache (kv_len).
+# this version serves training, whose gradients flow through it as in JAX
+# (the kernel is forward-only), and the decode step over a part-filled cache
+# (kv_len).
 # --------------------------------------------------------------------------
 
 

@@ -4,17 +4,26 @@ branches of ``repro.models.transformer``: minicpm, danube, stablelm, qwen3).
 Layers form *segments* of uniform structure whose parameters are stacked on a
 leading ``layers`` axis, as in the JAX package; where JAX scans a segment, the
 port loops over its layers.  Prefill attention goes through the flash kernel
-(``kernels.flash_attention``); decode attends over the (ring) KV cache with
-plain products.  The decode step writes the new key and value into the cache
-buffers in place (JAX returns updated copies; the serving loop donates them).
+(``kernels.flash_attention``); training attends through ``nn.attention`` as
+JAX does (the kernel, like the Pallas one, is forward-only), with each layer
+rematerialised in backward per ``cfg.remat``; decode attends over the (ring)
+KV cache with plain products.  The decode step writes the new key and value
+into the cache buffers in place (JAX returns updated copies; the serving loop
+donates them).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -136,11 +145,17 @@ def gqa_attn_forward(
     *,
     make_cache: bool = False,
     causal: bool = True,
+    training: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full-sequence attention (prefill), through the flash kernel."""
+    """Full-sequence attention: through the flash kernel at prefill, through
+    ``nn.attention`` in training (JAX's attention there; the kernel has no
+    backward)."""
     q, k, v = gqa_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    if training:
+        o = nn.attention(q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk)
+    else:
+        o = flash_attention(q, k, v, causal=causal, window=window)
     out = torch.matmul(o.reshape(o.shape[0], o.shape[1], -1), p["wo"].to(x.dtype))
     cache = None
     if make_cache:
@@ -214,12 +229,13 @@ def apply_block(
     is_moe: bool,
     make_cache: bool = False,
     causal: bool = True,
+    training: bool = False,
 ):
     if is_moe or cfg.attn_kind == "mla":
         raise NotImplementedError(_MOE_MLA)
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = gqa_attn_forward(cfg, p["attn"], h, positions, make_cache=make_cache,
-                                causal=causal)
+                                causal=causal, training=training)
     x = x + a
     h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
     f = nn.swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
@@ -249,18 +265,50 @@ def _layer(tree, i: int):
     return nn.tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree) -> List[Any]:
+    """The per-layer trees of a stacked tree, as views.  ``unbind``'s
+    backward stacks the layers' gradients once, where indexing each layer
+    would add a zero-filled gradient of the whole stack per layer."""
+    flat = [torch.unbind(a, 0) for a in nn.tree_leaves(tree)]
+    return [nn.tree_unflatten(tree, list(layer)) for layer in zip(*flat)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: keep the weight products
+    (``aten.mm``), recompute the rest (attention's batched products too)."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig, training: bool):
+    """Port of JAX's ``_remat``: ``"full"`` recomputes the whole layer in
+    backward, ``"dots"`` all but its weight products, ``"nothing"`` keeps
+    everything.  Recomputation gives the same values bit for bit."""
+    if not training or cfg.remat == "nothing":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return functools.partial(checkpoint, fn, **kw)
+
+
 def trunk_forward(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor, *,
-                  make_cache: bool = False):
+                  training: bool = False, make_cache: bool = False):
     """x: (B, S, d) -> (hidden, cache_by_segment, aux_loss)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for seg in segments(cfg):
+        block = _remat(
+            functools.partial(apply_block, cfg, is_moe=seg.is_moe, make_cache=make_cache,
+                              training=training),
+            cfg, training,
+        )
         layer_caches = []
-        for i in range(seg.n_layers):
-            x, cache, a = apply_block(
-                cfg, _layer(params[seg.name], i), x, positions,
-                is_moe=seg.is_moe, make_cache=make_cache,
-            )
+        for p_l in _unstack(params[seg.name]):
+            x, cache, a = block(p_l, x, positions)
             aux_total = aux_total + a
             layer_caches.append(cache)
         if make_cache:
