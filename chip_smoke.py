@@ -32,18 +32,29 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               K2 must launch 18 times a step (11 folded gradients, 7 working-
               copy weights), K3 and K4 never; falling losses, a live residual,
               and a working copy equal to the plain int8 round trip;
-  9. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+  9. collectives  the DaeMon collectives on one process group of world size 1
+              (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
+              with residuals at danube's 11 foldable shapes, compressed and
+              chunked all-gathers of its 7 stacked weights; K1/K2 must launch
+              inside them, and the results must equal the same calls on CPU
+              copies (gloo, plain versions) bit for bit; timed, with the wire
+              bytes int8 against f32;
+ 10. checkpoint  save_async's host snapshot of full-width danube's (params,
+              DaemonState), timed; reduced danube's state after 2 card train
+              steps serialised and restored onto the card bit for bit; save
+              without zstandard raising before it writes;
+ 11. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 10. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 12. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 11. reference the reduced models (danube, qwen3, falcon-mamba) on the card
+ 13. reference the reduced models (danube, qwen3, falcon-mamba) on the card
               against the plain path on the CPU, and 3 DAEMON_AGGRESSIVE train
               steps of reduced danube from the same state and batches;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-9) and read just after; launches made to compare a kernel
-with its plain version are not counted.  Needs one card; without CUDA, or
+main-path phase (4-9, 11) and read just after; launches made to compare a
+kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
 from __future__ import annotations
@@ -53,6 +64,7 @@ import gc
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -220,14 +232,18 @@ def nvidia_smi() -> str:
 # --------------------------------------------------------------------------
 
 
-def _flat_shapes(cfg, keep):
-    """The 2-D shapes K1/K2 see for the leaves ``keep`` selects: each tensor
-    flattened to (prod of leading dims, last dim)."""
+def _spec_shapes(cfg, keep):
+    """The shapes of the parameters ``keep`` selects."""
     from repro_torch.models import model as M
     from repro_torch.models import nn
 
-    return [(int(math.prod(s.shape[:-1])), s.shape[-1])
-            for s in nn.tree_leaves(M.model_specs(cfg)) if keep(tuple(s.shape))]
+    return [tuple(s.shape) for s in nn.tree_leaves(M.model_specs(cfg)) if keep(tuple(s.shape))]
+
+
+def _flat_shapes(cfg, keep):
+    """The 2-D shapes K1/K2 see for the leaves ``keep`` selects: each tensor
+    flattened to (prod of leading dims, last dim)."""
+    return [(int(math.prod(s[:-1])), s[-1]) for s in _spec_shapes(cfg, keep)]
 
 
 def page_class_shapes(cfg):
@@ -597,7 +613,7 @@ def check_mamba_scan(torch, cfg):
 
 
 # --------------------------------------------------------------------------
-# phases 4-8: the main paths and the reference check
+# phases 4-13: the main paths and the reference check
 # --------------------------------------------------------------------------
 
 
@@ -922,6 +938,255 @@ def check_fold(torch, cfg, params, residual, batch):
                                   "bit for bit: ok", max_abs_err=worst)
 
 
+def run_collectives(torch, runtime, cfg):
+    """The DaeMon collectives at danube's full-width shapes, on one process
+    group of world size 1 (gloo for CPU tensors, NCCL for CUDA ones): one
+    card holds one NCCL rank, so parity between ranks is the CPU tests' and
+    this phase shows K1/K2 working inside the collectives.  The main path:
+    ``compressed_grad_sync`` (int8, error feedback) of f32 gradients with
+    residuals at the 11 foldable shapes, and ``compressed_all_gather`` and
+    ``chunked_all_gather`` (the first layer critical, DAEMON_AGGRESSIVE's
+    page chunks) of the 7 stacked weights.  Then the same calls on CPU copies
+    on gloo, through the plain versions, must give the same bits at the 4
+    fold-only shapes and the smallest stacked weight; then each call is
+    timed.  At world size 1 nothing crosses a link: the wire bytes printed
+    are what the collectives hand NCCL, int8 against the f32 they replace."""
+    import torch.distributed as dist
+
+    from repro_torch.core import movement as mv
+    from repro_torch.core.movement.daemon_step import is_foldable, is_page_class
+    from repro_torch.kernels.block_quant.ops import wire_bytes
+
+    dev = torch.device("cuda")
+    weights = _spec_shapes(cfg, is_page_class)
+    fold_only = _spec_shapes(cfg, lambda s: is_foldable(s) and not is_page_class(s))
+    grads = fold_only + weights
+    require(len(grads) == 11 and len(weights) == 7,
+            f"collectives: {len(grads)} foldable and {len(weights)} stacked shapes, not 11 and 7")
+    smallest = min(weights, key=math.prod)
+    compared = set(fold_only + [smallest])
+    crit, chunks = 1, mv.DAEMON_AGGRESSIVE.page_chunks
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(shape):
+        g = torch.randn(shape, generator=gen, device=dev)
+        return g, torch.randn(shape, generator=gen, device=dev) * 1e-2
+
+    def calls(shape, g, r):
+        out = {"grad_sync": mv.compressed_grad_sync(g, None, r, compress="int8")}
+        if shape in weights:
+            out["all_gather"] = (mv.compressed_all_gather(g, compress="int8"),)
+            out["chunked_all_gather"] = (mv.chunked_all_gather(
+                g, page_chunks=chunks, critical_rows=crit, compress_pages="int8"),)
+        return out
+
+    store = ROOT / "build" / f"chip_smoke_pg.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        kept = {}
+        for shape in grads:
+            g, r = inputs(shape)
+            out = calls(shape, g, r)
+            if shape in compared:
+                kept[shape] = (g, r, out)
+            del g, r, out
+        torch.cuda.synchronize()
+        launches = dict(runtime.LAUNCHES)
+        # K1 twice and K2 three times a grad sync; once each per gather
+        # and per page chunk
+        want_k1 = 2 * len(grads) + sum(1 + min(chunks, s[0] - crit) for s in weights)
+        want_k2 = 3 * len(grads) + sum(1 + min(chunks, s[0] - crit) for s in weights)
+        emit("collectives", backend=dist.get_backend(), world_size=dist.get_world_size(),
+             grad_shapes=[list(s) for s in grads], weight_shapes=[list(s) for s in weights],
+             critical_rows=crit, page_chunks=chunks, launches=launches,
+             expected={"block_quant.quantize": want_k1, "block_quant.dequantize": want_k2})
+        require(launches["block_quant.quantize"] == want_k1
+                and launches["block_quant.dequantize"] == want_k2,
+                f"collectives: K1/K2 launched {launches['block_quant.quantize']}/"
+                f"{launches['block_quant.dequantize']} times, not {want_k1}/{want_k2}")
+
+        # the same calls on CPU copies, on gloo, through the plain versions
+        for shape, (g, r, out) in kept.items():
+            cpu = calls(shape, g.cpu(), r.cpu())
+            for name, results in out.items():
+                for got, want in zip(results, cpu[name]):
+                    got = got.cpu()
+                    err = float((got - want).abs().max()) if got.numel() else 0.0
+                    require(got.dtype == want.dtype and torch.equal(got, want),
+                            f"collectives {name} {shape}: card (NCCL, K1/K2) and CPU (gloo, "
+                            f"plain) differ by {err}")
+            del cpu
+        emit("collectives", parity=f"{sorted(list(s) for s in compared)}: grad_sync (g_mean, "
+                                   "new_residual), all_gather, chunked_all_gather on the card "
+                                   "== on CPU copies through gloo and the plain K1/K2, bit for "
+                                   "bit: ok")
+        del kept
+
+        times = {"grad_sync_ms": 0.0, "all_gather_ms": 0.0, "chunked_all_gather_ms": 0.0}
+        wire = {"grad_sync_int8": 0, "grad_sync_f32": 0, "all_gather_int8": 0,
+                "all_gather_f32": 0}
+        n = dist.get_world_size()
+        for shape in grads:
+            g, r = inputs(shape)
+            numel, padded = math.prod(shape), -(-math.prod(shape) // (128 * n)) * 128 * n
+            times["grad_sync_ms"] += time_ms(
+                torch, lambda: mv.compressed_grad_sync(g, None, r, compress="int8"), 5, 1)
+            # an all-to-all and an all-gather of the int8 codes and scales,
+            # against the same two collectives (an all-reduce) in f32
+            wire["grad_sync_int8"] += 2 * wire_bytes((padded,))
+            wire["grad_sync_f32"] += 2 * 4 * numel
+            if shape in weights:
+                times["all_gather_ms"] += time_ms(
+                    torch, lambda: mv.compressed_all_gather(g, compress="int8"), 5, 1)
+                times["chunked_all_gather_ms"] += time_ms(
+                    torch, lambda: mv.chunked_all_gather(g, page_chunks=chunks, critical_rows=crit,
+                                                         compress_pages="int8"), 5, 1)
+                wire["all_gather_int8"] += wire_bytes((-(-numel // 128) * 128,))
+                wire["all_gather_f32"] += 4 * numel
+            del g, r
+        # where a chunked gather's time goes: 2 NCCL calls a page chunk
+        g, _ = inputs(max(weights, key=math.prod))
+        emit("collectives", part=f"one chunked_all_gather of {list(g.shape)} under the profiler",
+             **device_profile(torch, lambda: mv.chunked_all_gather(
+                 g, page_chunks=chunks, critical_rows=crit)))
+        del g
+        elements = sum(math.prod(s) for s in grads)
+        emit("collectives", **times, grad_sync_elements=elements,
+             all_gather_elements=sum(math.prod(s) for s in weights), wire_bytes=wire,
+             grad_sync_f32_over_int8=wire["grad_sync_f32"] / wire["grad_sync_int8"],
+             all_gather_f32_over_int8=wire["all_gather_f32"] / wire["all_gather_int8"],
+             note="CUDA-event medians of 5 after 1 warm-up, summed over the shapes; "
+                  "grad_sync over the 11 foldable gradients, the gathers over the 7 "
+                  "stacked weights; world size 1, so NCCL copies and nothing crosses a link",
+             nvidia_smi=nvidia_smi())
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    free_memory(torch)
+    return launches
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+def run_checkpoint(torch, cfg):
+    """Checkpointing on the card: the stall ``save_async`` puts on the
+    training loop (its host snapshot of full-width danube's (params,
+    DaemonState)); reduced danube's state after 2 card train steps through
+    the uncompressed serialise/deserialise and back onto the card, bit for
+    bit, bf16 included; and ``save`` without ``zstandard`` raising before it
+    writes (with it, a full save and restore).  No kernel runs here."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager, ckpt
+    from repro_torch.core import movement as mv
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    dev = torch.device("cuda")
+    have_zstd = ckpt.zstandard is not None
+    ck_dir = ROOT / "build" / f"chip_smoke_ckpt.{os.getpid()}"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    # 1. the host snapshot save_async takes on the caller's thread
+    master = nn.init_params(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = mv.init_state(master)
+    params = mv.working_copy(master, mv.DAEMON_DEFAULT)
+    tree = (params, state)
+    leaves = list(ckpt._items(tree))
+    tree_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    available = _host_available_bytes()
+    what = "(params, DaemonState)"
+    if 1.5 * tree_bytes > available:  # keep room for the rest of the process
+        tree, what = (params, state.master), "(params, master) only: the host cannot hold all"
+        tree_bytes = sum(t.numel() * t.element_size() for _, t in ckpt._items(tree))
+    mgr = CheckpointManager(ck_dir / "full")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save_async(1, tree, {"step": 1, "arch": cfg.name})
+    snapshot_s = time.perf_counter() - t0
+    try:
+        mgr.wait()
+        write = "written"
+    except ImportError as e:
+        write = f"ImportError: {e}"
+    shutil.rmtree(ck_dir / "full", ignore_errors=True)
+    emit("checkpoint", part="save_async's host snapshot at full width", arch=cfg.name,
+         snapshotted=what, leaves=len(leaves), bytes=tree_bytes,
+         host_mem_available_bytes=available, save_async_s=snapshot_s,
+         host_gb_per_s=tree_bytes / snapshot_s / 1e9, zstandard_present=have_zstd,
+         background_write=write)
+    del master, state, params, tree, leaves
+    free_memory(torch)
+
+    # 2. reduced danube after 2 card train steps, serialised and back
+    rcfg = cfg.reduced()
+    master = nn.init_params(M.model_specs(rcfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    state = mv.init_state(master)
+    params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
+    step = steps.make_train_step(rcfg, total_steps=2, movement="daemon",
+                                 movement_cfg=mv.DAEMON_AGGRESSIVE)
+    pipe = TokenPipeline(DataConfig(vocab_size=rcfg.vocab_size, seq_len=64, global_batch=2,
+                                    seed=SEED))
+    try:
+        for i in range(2):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_at(i).items()}
+            params, state, _ = step(params, state, batch)
+    finally:
+        pipe.close()
+    tree = (params, state)
+    flat = ckpt.flatten(tree)
+    payload = ckpt.serialize(flat)
+    back = ckpt.unflatten_into(tree, ckpt.deserialize(payload),
+                               {k: ckpt.dtype_name(a) for k, a in flat.items()})
+    pairs = list(zip(ckpt._items(tree), ckpt._items(back)))
+    for (key, a), (key_b, b) in pairs:
+        require(key == key_b and b.device == a.device and b.dtype == a.dtype
+                and torch.equal(a, b), f"checkpoint: {key} differs after the round trip")
+    bf16 = sum(a.dtype == torch.bfloat16 for (_, a), _ in pairs)
+    require(bf16 == len(nn.tree_leaves(params)) and int(state.adam.step) == 2,
+            f"checkpoint: {bf16} bf16 leaves, step {int(state.adam.step)}")
+    emit("checkpoint", part="reduced danube after 2 card train steps, serialised and back",
+         leaves=len(pairs), bf16_leaves=bf16, payload_bytes=len(payload),
+         round_trip="every leaf equal, on the card, in its dtype: ok")
+
+    # 3. save: without zstandard it raises before writing; with it, it saves
+    mgr = CheckpointManager(ck_dir / "reduced")
+    if have_zstd:
+        mgr.save(2, tree, {"step": 2})
+        restored, extra = mgr.restore(None, tree)
+        require(extra == {"step": 2} and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(ckpt._items(tree), ckpt._items(restored))),
+            "checkpoint: save/restore changed the state")
+        outcome = "saved and restored, bit for bit"
+    else:
+        try:
+            mgr.save(2, tree, {"step": 2})
+            outcome = None
+        except ImportError as e:
+            outcome = f"ImportError before writing: {e}"
+        require(outcome is not None, "checkpoint: save without zstandard did not raise")
+        require(not any((ck_dir / "reduced").iterdir()),
+                "checkpoint: save without zstandard left files")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    emit("checkpoint", zstandard_present=have_zstd, save=outcome)
+    del master, state, params, tree, flat, back, pairs
+    free_memory(torch)
+
+
 def run_train(torch, runtime):
     """The training entry point itself at full width; it runs DAEMON_DEFAULT, as
     JAX's train() does, so no kernel launches."""
@@ -1109,6 +1374,8 @@ def main() -> int:
     per_phase["profile_ssm"] = run_ssm_profile(torch, runtime, ssm_cfg)
     free_memory(torch)
     per_phase["train_step"] = run_train_step(torch, runtime, cfg)
+    per_phase["collectives"] = run_collectives(torch, runtime, cfg)
+    run_checkpoint(torch, cfg)
     per_phase["train"] = run_train(torch, runtime)
     run_autograd_guard(torch)
     run_reference(torch)

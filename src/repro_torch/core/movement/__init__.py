@@ -1,3 +1,8 @@
+from repro_torch.core.movement.collectives import (
+    chunked_all_gather,
+    compressed_all_gather,
+    compressed_grad_sync,
+)
 from repro_torch.core.movement.daemon_step import (
     DaemonState,
     init_state,
@@ -13,6 +18,7 @@ from repro_torch.core.movement.engine import (
 )
 
 __all__ = [
+    "chunked_all_gather", "compressed_all_gather", "compressed_grad_sync",
     "DaemonState", "init_state", "make_daemon_train_step", "working_copy",
     "BASELINE", "DAEMON_AGGRESSIVE", "DAEMON_DEFAULT", "MovementConfig",
     "SelectionUnit",

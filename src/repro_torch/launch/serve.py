@@ -85,18 +85,23 @@ def serve(
 
 def _grow_cache(cfg, cache, total_len: int):
     """Pad the seq dim (axis 2: [L, B, S, ...]) of attention cache buffers up
-    to total_len.  SWA ring caches are window-sized and stay put.  An SSM
-    cache (a ``{"state", "conv"}`` dict: the recurrent state and the conv
-    tail) has no seq dim and is left alone, as the docstring of JAX's
-    ``_grow_cache`` intends; its code pads the conv tail, and decode then fails."""
+    to total_len.  An SWA cache is a ring of at most ``window`` slots: one
+    already ``window`` long stays put, and a shorter one (a prompt shorter
+    than the window) grows to ``min(window, total_len)``, not to total_len,
+    so decode keeps attending inside the window.  Its slots 0..prompt_len-1
+    already hold those positions (slot = pos % w), and decode's ring mask
+    drops the empty ones.  JAX's ``_grow_cache`` pads such a cache to
+    total_len, and its decode then attends past the window.  An SSM cache (a
+    ``{"state", "conv"}`` dict: the recurrent state and the conv tail) has no
+    seq dim and is left alone, as the docstring of JAX's ``_grow_cache``
+    intends; its code pads the conv tail, and decode then fails."""
+    target = min(cfg.window, total_len) if cfg.attn_kind == "swa" else total_len
 
     def grow(x):
         if x.dim() < 4:
             return x
-        if cfg.attn_kind == "swa" and x.shape[2] == cfg.window:
-            return x  # ring buffer
-        if x.shape[2] < total_len:
-            out = x.new_zeros((*x.shape[:2], total_len, *x.shape[3:]))
+        if x.shape[2] < target:
+            out = x.new_zeros((*x.shape[:2], target, *x.shape[3:]))
             out[:, :, :x.shape[2]] = x
             return out
         return x

@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --batch 2 --seq 4096 --steps 3 --movement daemon
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --reduced \
-        --steps 8 --batch 4 --seq 32 --movement daemon --device cpu
+        --steps 20 --batch 4 --seq 32 --movement daemon --device cpu --ckpt-dir /tmp/ck
 
 Wires together: config -> data pipeline -> (baseline | daemon) train step ->
-supervisor (heartbeat + straggler policy).  Runs on the card unless
-``--device cpu`` is given.  Checkpointing and device meshes are not ported
-yet and raise (ROADMAP Queue 1 items 9 and 15).
+async checkpointing -> supervisor (heartbeat + straggler policy) ->
+restart from the latest checkpoint.  Runs on the card unless ``--device cpu``
+is given.  Checkpoints are in the JAX package's format, and a daemon run
+(bf16 working copy) resumes.  Device meshes are not ported yet and raise
+(ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch import device as devices
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import movement as mv
 from repro_torch.data import DataConfig, TokenPipeline
@@ -39,6 +42,7 @@ def train(
     movement: str = "baseline",
     peak_lr: float = 3e-4,
     ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 20,
     resume: bool = False,
     mesh_shape=None,
     num_microbatches: int = 1,
@@ -48,10 +52,6 @@ def train(
 ):
     """-> (params, state, losses), as JAX's ``train``."""
     dev = devices.resolve(device)
-    if ckpt_dir or resume:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP Queue 1 item 9, checkpoint/ckpt.py)"
-        )
     if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh {mesh_shape}: the port trains on one device until ROADMAP Queue 1 item 15 "
@@ -74,11 +74,19 @@ def train(
         state = adamw.init(master)
         params = master
 
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if mgr and resume and mgr.latest_step() is not None:
+        (params, state), extra = mgr.restore(None, (params, state))
+        start_step = int(extra.get("step", 0))
+        print(f"resumed from step {start_step}")
+
     pipe = TokenPipeline(
         DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
             seed=seed,
         ),
+        start_step=start_step,
     )
     supervisor = RunSupervisor(
         hosts=[0],
@@ -89,7 +97,7 @@ def train(
     losses = []
     t_start = time.time()
     try:
-        for i, host_batch in zip(range(steps), pipe):
+        for i, host_batch in zip(range(start_step, steps), pipe):
             batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
             t0 = time.time()
             params, state, metrics = step_fn(params, state, batch)
@@ -97,14 +105,18 @@ def train(
             losses.append(loss)
             supervisor.monitor.beat(0)
             supervisor.tick({0: time.time() - t0})
-            if (i + 1) % log_every == 0 or i == 0:
+            if mgr and (i + 1) % ckpt_every == 0:
+                mgr.save_async(i + 1, (params, state), {"step": i + 1, "arch": arch})
+            if (i + 1) % log_every == 0 or i == start_step:
                 print(
                     f"step {i+1:5d} loss {loss:.4f} lr {float(metrics['lr']):.2e} "
                     f"gnorm {float(metrics['grad_norm']):.3f} "
-                    f"({(time.time()-t_start)/(i+1):.2f}s/step)"
+                    f"({(time.time()-t_start)/(i-start_step+1):.2f}s/step)"
                 )
     finally:
         pipe.close()
+        if mgr:  # the last save lands even if a step raised
+            mgr.wait()
     return params, state, losses
 
 
