@@ -26,40 +26,56 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
   7. profile_ssm a second falcon prefill and 4 decode steps under
               torch.profiler: K4's and the GEMMs' share of prefill device
               time, and decode's idle share;
-  8. train_step the DaeMon training step of h2o-danube-1.8b at full width and
+  8. serve_hybrid serve("zamba2-1.2b", reduced=False, batch=2, prompt_len=8192,
+              gen_tokens=16): the flash kernel must launch once per
+              invocation of the shared attention block (7), the scan kernel
+              never;
+  9. profile_hybrid a second zamba2 prefill under torch.profiler: K3's, the
+              weight GEMMs', the SSD einsums' and the other (elementwise)
+              kernels' shares of its device time;
+ 10. train_step the DaeMon training step of h2o-danube-1.8b at full width and
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
               K2 must launch 18 times a step (11 folded gradients, 7 working-
               copy weights), K3 and K4 never; falling losses, a live residual,
-              and a working copy equal to the plain int8 round trip;
-  9. collectives  the DaeMon collectives on one process group of world size 1
+              a working copy equal to the plain int8 round trip, and the fold
+              of one more step's gradients equal to the plain fold;
+ 11. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
+              20 a step (16 folded gradients, 4 working-copy weights);
+ 12. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
+              of 64 layers (the whole model's training state, ~131 GB, does
+              not fit the card): K1 = K2 = 12 a step (9 + 3), the chunked
+              scan in training, K4 never;
+ 13. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
               chunked all-gathers of its 7 stacked weights; K1/K2 must launch
               inside them, and the results must equal the same calls on CPU
               copies (gloo, plain versions) bit for bit; timed, with the wire
               bytes int8 against f32;
- 10. checkpoint  save_async's host snapshot of full-width danube's (params,
+ 14. checkpoint  save_async's host snapshot of full-width danube's (params,
               DaemonState), timed; reduced danube's state after 2 card train
               steps serialised and restored onto the card bit for bit; save
               without zstandard raising before it writes;
- 11. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+ 15. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 12. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 16. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 13. reference the reduced models (danube, qwen3, falcon-mamba) on the card
-              against the plain path on the CPU, and 3 DAEMON_AGGRESSIVE train
-              steps of reduced danube from the same state and batches;
+ 17. reference the reduced models (danube, qwen3, falcon-mamba, zamba2) on the
+              card against the plain path on the CPU, and 3 DAEMON_AGGRESSIVE
+              train steps each of reduced danube, zamba2 and falcon-mamba from
+              the same state and batches;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-9, 11) and read just after; launches made to compare a
+main-path phase (4-13, 15) and read just after; launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -87,6 +103,8 @@ SMS, SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 132, 16, 1.98e9
 
 ARCH = "h2o-danube-1.8b"
 SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "zamba2-1.2b"
+SSM_TRAIN_LAYERS = 8  # falcon's training phase: its first 8 of 64 layers
 BATCH, PROMPT, GEN = 2, 8192, 16
 TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
 TRAIN_STEPS = 4  # timed, then one more under the profiler
@@ -391,11 +409,13 @@ def sass_counts(lib: Path, opcode: str) -> dict:
 
 def check_flash_attention(torch, cfg):
     """K3 against the plain version on the same inputs, over ATTN_CASES, the
-    reduced danube's head_dim 16 and the serving shape: f32 (CUDA cores) at
-    |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <= 1e-5 +
+    reduced danube's head_dim 16 and the serving shapes of danube and zamba2
+    (each also timed beside its bound and one SDPA call): f32 (CUDA cores)
+    at |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <= 1e-5 +
     1e-2|ref|, one bf16 ulp."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -440,76 +460,93 @@ def check_flash_attention(torch, cfg):
             emit("kernels.flash_attention", case=list(case), dtype=str(dt).replace("torch.", ""),
                  max_abs_err=float(err.max()), excess_over_tol=excess, tol=tol)
 
-    window = cfg.window if cfg.attn_kind == "swa" else 0
-    shape = (BATCH, PROMPT, PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True, window)
+    # The serving shapes: danube's banded layer, where K3 must beat SDPA with
+    # the band as a mask, and zamba2's full causal shared block (32/32 heads
+    # of 64), once per invocation, beside SDPA's flash backend (is_causal).
     # Random q/k/v make |o| ~ sqrt(e / keys), ~0.03 for most rows here, so an
     # absolute limit would hide a wrong KV tile or window edge.  In f32 the
-    # serving shape is held as tightly as the parity cases; in bf16 both sides
-    # keep p in f32 (the kernel as bf16 hi + lo) and round o once, so they may
-    # differ by one bf16 ulp (<= 2^-7 |o|) and no more.
-    q, k, v = qkv(*shape[:6], torch.float32)
-    out = kernel.forward(q, k, v, causal=True, window=window)
-    expect = ref.attention_ref(q, k, v, causal=True, window=window)
-    err32 = (out - expect).abs()
-    excess = float((err32 - 2e-5 * expect.abs()).max())
-    require(excess <= 2e-5, f"K3 f32 at the serving shape: |err| exceeds 2e-5 + 2e-5|ref| "
-                            f"by {excess}")
-    emit("kernels.flash_attention", case=list(shape), dtype="float32",
-         max_abs_err=float(err32.max()), mean_abs_ref=float(expect.abs().mean()),
-         tol="atol=rtol=2e-5")
-    worst_f32 = max(worst_f32, float(err32.max()))
-    del q, k, v, out, expect, err32
+    # serving shapes are held as tightly as the parity cases; in bf16 both
+    # sides keep p in f32 (the kernel as bf16 hi + lo) and round o once, so
+    # they may differ by one bf16 ulp (<= 2^-7 |o|) and no more.
+    serving = []
+    for arch_cfg, must_beat_library in ((cfg, True), (get_config(HYBRID_ARCH), False)):
+        window = arch_cfg.window if arch_cfg.attn_kind == "swa" else 0
+        serving.append(((BATCH, PROMPT, PROMPT, arch_cfg.num_heads, arch_cfg.num_kv_heads,
+                         arch_cfg.head_dim, True, window), arch_cfg.name, must_beat_library))
+    summary = None
+    for shape, arch, must_beat_library in serving:
+        b, sq, skv, h, kvh, d, _, window = shape
+        q, k, v = qkv(b, sq, skv, h, kvh, d, torch.float32)
+        out = kernel.forward(q, k, v, causal=True, window=window)
+        expect = ref.attention_ref(q, k, v, causal=True, window=window)
+        err32 = (out - expect).abs()
+        excess = float((err32 - 2e-5 * expect.abs()).max())
+        require(excess <= 2e-5, f"K3 f32 at {arch}'s serving shape: |err| exceeds 2e-5 + "
+                                f"2e-5|ref| by {excess}")
+        emit("kernels.flash_attention", arch=arch, case=list(shape), dtype="float32",
+             max_abs_err=float(err32.max()), mean_abs_ref=float(expect.abs().mean()),
+             tol="atol=rtol=2e-5")
+        worst_f32 = max(worst_f32, float(err32.max()))
+        del q, k, v, out, expect, err32
 
-    q, k, v = qkv(*shape[:6], torch.bfloat16)
-    out = kernel.forward(q, k, v, causal=True, window=window)
-    expect = ref.attention_ref(q, k, v, causal=True, window=window)
-    diff = (out.float() - expect.float()).abs()
-    err = float(diff.max())
-    excess = float((diff - rtol * expect.float().abs()).max())
-    rel_l1 = float(diff.sum() / expect.float().abs().sum())
-    require(excess <= atol, f"K3 bf16 at the serving shape: |err| exceeds {atol} + {rtol}|ref| "
-                            f"by {excess}")
-    worst_bf16 = max(worst_bf16, err)
-    del diff
+        q, k, v = qkv(b, sq, skv, h, kvh, d, torch.bfloat16)
+        out = kernel.forward(q, k, v, causal=True, window=window)
+        expect = ref.attention_ref(q, k, v, causal=True, window=window)
+        diff = (out.float() - expect.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - rtol * expect.float().abs()).max())
+        rel_l1 = float(diff.sum() / expect.float().abs().sum())
+        require(excess <= atol, f"K3 bf16 at {arch}'s serving shape: |err| exceeds {atol} + "
+                                f"{rtol}|ref| by {excess}")
+        worst_bf16 = max(worst_bf16, err)
+        del diff
 
-    # yardstick only, never called by the port: one PyTorch call, same function
-    qpos = torch.arange(PROMPT, device=dev)[:, None]
-    kpos = torch.arange(PROMPT, device=dev)[None, :]
-    band = (kpos <= qpos) & (kpos > qpos - window) if window else kpos <= qpos
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
-    lib_err = float((lib_out.transpose(1, 2).float() - expect.float()).abs().max())
-    del lib_out
+        # yardstick only, never called by the port: one PyTorch call, same function
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            qpos = torch.arange(PROMPT, device=dev)[:, None]
+            kpos = torch.arange(PROMPT, device=dev)[None, :]
+            lib_kw = {"attn_mask": (kpos <= qpos) & (kpos > qpos - window)}
+        else:
+            lib_kw = {"is_causal": True}
+        library = f"scaled_dot_product_attention({list(lib_kw)[0]})"
+        if kvh != h:
+            lib_kw["enable_gqa"] = True
 
-    # kernel and library in turns (kernel, library, library, kernel)
-    def k3():
-        return kernel.forward(q, k, v, causal=True, window=window)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+        def k3():
+            return kernel.forward(q, k, v, causal=True, window=window)
 
-    k3_a, lib_a, lib_b, k3_b = (time_ms(torch, fn) for fn in (k3, sdpa, sdpa, k3))
-    ms, library_ms = min(k3_a, k3_b), min(lib_a, lib_b)
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True, window=window))
+        lib_err = float((sdpa().transpose(1, 2).float() - expect.float()).abs().max())
+        # kernel and library in turns (kernel, library, library, kernel)
+        k3_a, lib_a, lib_b, k3_b = (time_ms(torch, fn) for fn in (k3, sdpa, sdpa, k3))
+        ms, library_ms = min(k3_a, k3_b), min(lib_a, lib_b)
+        plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True, window=window))
 
-    b, sq, skv, h, kvh, d = shape[:6]
-    flops = 4 * d * b * h * band_pairs(sq, skv, True, window)
-    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kvh * d)  # q, o; k, v in bf16
-    bound_ms = max(flops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOP_PER_S > n_bytes / HBM_BYTES_PER_S else "bytes"
-    require(ms < library_ms, f"K3 bf16 at the serving shape: {ms} ms, not faster than "
-                             f"scaled_dot_product_attention's {library_ms} ms")
-    emit("kernels.flash_attention", case=list(shape), dtype="bfloat16", max_abs_err=err,
-         excess_over_tol=excess, mean_abs_ref=float(expect.float().abs().mean()),
-         rel_l1_err=rel_l1, tol=f"|err| <= {atol} + {rtol}|ref|", ms=ms, ms_runs=[k3_a, k3_b],
-         plain_ms=plain_ms, library_ms=library_ms, library_ms_runs=[lib_a, lib_b],
-         library_max_abs_err=lib_err, flop=flops, bytes=n_bytes, bound_ms=bound_ms,
-         share_of_bound=bound_ms / ms, achieved_tflop_per_s=flops / ms / 1e9)
-    return {"max_abs_err": worst_bf16, "f32_max_abs_err": worst_f32, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "share_of_bound": bound_ms / ms,
-            "achieved_tflop_per_s": flops / ms / 1e9,
-            "hgmma_instructions": sum(tc.values()), "shape": list(shape)}
+        flops = 4 * d * b * h * band_pairs(sq, skv, True, window)
+        n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kvh * d)  # q, o; k, v in bf16
+        bound_ms = max(flops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if flops / BF16_FLOP_PER_S > n_bytes / HBM_BYTES_PER_S else "bytes"
+        emit("kernels.flash_attention", arch=arch, case=list(shape), dtype="bfloat16",
+             max_abs_err=err, excess_over_tol=excess,
+             mean_abs_ref=float(expect.float().abs().mean()), rel_l1_err=rel_l1,
+             tol=f"|err| <= {atol} + {rtol}|ref|", ms=ms, ms_runs=[k3_a, k3_b],
+             plain_ms=plain_ms, library=library,
+             library_ms=library_ms, library_ms_runs=[lib_a, lib_b], library_max_abs_err=lib_err,
+             flop=flops, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+             share_of_bound=bound_ms / ms, achieved_tflop_per_s=flops / ms / 1e9)
+        if must_beat_library:
+            require(ms < library_ms, f"K3 bf16 at {arch}'s serving shape: {ms} ms, not faster "
+                                     f"than scaled_dot_product_attention's {library_ms} ms")
+        summary = summary or {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms,
+                              "share_of_bound": bound_ms / ms,
+                              "achieved_tflop_per_s": flops / ms / 1e9, "shape": list(shape)}
+        del q, k, v, qt, kt, vt, out, expect, lib_kw
+    return {"max_abs_err": worst_bf16, "f32_max_abs_err": worst_f32,
+            "hgmma_instructions": sum(tc.values()), **summary}
 
 
 def reduced_attn_case():
@@ -617,9 +654,10 @@ def check_mamba_scan(torch, cfg):
 # --------------------------------------------------------------------------
 
 
-def run_serve(torch, runtime, phase, arch, kernel):
-    """serve(arch) at full width and depth; ``kernel`` (the path's kernel) must
-    launch once per layer, and the tokens must lie in the vocabulary."""
+def run_serve(torch, runtime, phase, arch, want):
+    """serve(arch) at full width and depth; each kernel in ``want`` must
+    launch as many times as it says, and the tokens must lie in the
+    vocabulary."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
 
@@ -631,8 +669,9 @@ def run_serve(torch, runtime, phase, arch, kernel):
               movement="daemon", seed=SEED)
     wall = time.perf_counter() - t0
     launches = dict(runtime.LAUNCHES)
-    require(launches[kernel] == cfg.num_layers,
-            f"{phase}: {kernel} launched {launches[kernel]} times, not {cfg.num_layers}")
+    for kernel, n in want.items():
+        require(launches[kernel] == n, f"{phase}: {kernel} launched {launches[kernel]} times, "
+                                       f"not {n}")
     toks = r["tokens"]
     require(toks.shape == (BATCH, GEN) and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
             f"{phase}: tokens of shape {toks.shape} out of [0, {cfg.vocab_size})")
@@ -686,6 +725,50 @@ def run_ssm_profile(torch, runtime, cfg):
          state_shape=list(state.shape))
     del params, out
     torch.cuda.empty_cache()
+    return launches
+
+
+def run_hybrid_profile(torch, runtime, cfg):
+    """A second zamba2 prefill from the bf16 working copy under
+    torch.profiler: K3 must launch once per invocation of the shared block;
+    the shares of its device time taken by K3, by the weight GEMMs
+    (``aten::mm``), by the batched products (``aten::bmm``: the SSD einsums)
+    and by everything else (elementwise passes, reductions, copies)."""
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import steps
+    from repro_torch.models import hybrid
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    dev = torch.device("cuda")
+    master = nn.init_params(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
+    params = mv.working_copy(master, mv.DAEMON_DEFAULT)
+    del master
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    prompt = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    prefill = steps.make_prefill_step(cfg)
+    out = {}
+
+    def run_prefill():
+        out["logits"], out["cache"] = prefill(params, {"tokens": prompt})
+
+    runtime.reset_launches()
+    prof = device_profile(torch, run_prefill, ops=("aten::mm", "aten::bmm"))
+    launches = dict(runtime.LAUNCHES)
+    ninv = hybrid.n_invocations(cfg)
+    require(launches["flash_attention.forward"] == ninv and launches["mamba_scan.forward"] == 0,
+            f"profile_hybrid: launches {launches}, not K3 {ninv} and K4 0")
+    require(bool(torch.isfinite(out["logits"]).all()), "profile_hybrid: non-finite logits")
+    busy = prof["device_busy_ms"]
+    mm, bmm = prof["device_ms_by_op"]["aten::mm"], prof["device_ms_by_op"]["aten::bmm"]
+    flash = prof["flash_kernel_ms"]
+    shares = {"flash (K3)": flash / busy, "weight_gemms (aten::mm)": mm / busy,
+              "ssd_einsums (aten::bmm)": bmm / busy,
+              "other (elementwise, reductions, copies)": (busy - flash - mm - bmm) / busy}
+    emit("profile_hybrid", part="prefill (bf16 copy)", share_of_device_time_by_part=shares,
+         launches=launches, logit_scale=float(out["logits"].abs().max()), **prof)
+    del params, out
+    free_memory(torch)
     return launches
 
 
@@ -755,20 +838,34 @@ def run_int8_copy(torch, runtime, cfg):
 
 
 def train_flop(cfg, batch: int, seq: int) -> dict:
-    """Model FLOP of one training step, written out: 6 N per token for the
-    weights (forward 2, backward 4; N every parameter, as 6·N·tokens counts
-    it) plus attention's QK^T and PV products, 4·B·H·dh per (q, k) pair the
-    mask keeps, three times over (forward and backward), per layer.  The
-    recompute of a rematerialised layer is not model FLOP."""
+    """Model FLOP of one training step, written out: 6 per token for each
+    weight a token passes (forward 2, backward 4: every parameter, as
+    6·N·tokens counts it, and the hybrid's shared attention+MLP block's
+    matrices once more for each further invocation) plus attention's QK^T and
+    PV products, 4·B·H·dh per (q, k) pair the mask keeps, three times over
+    (forward and backward), per attention layer (per invocation of the
+    hybrid's shared block; none in the SSM family).  The SSM scans and the
+    recompute of a rematerialised layer are not counted."""
+    from repro_torch.models import hybrid
     from repro_torch.models import model as M
 
     n = M.param_count(cfg)
+    applied, attn_layers = n, cfg.num_layers
+    if cfg.family == "hybrid":
+        shared = hybrid.shared_block_specs(cfg)
+        dense = sum(math.prod(shared[k].shape) for k in ("wq", "wk", "wv", "wo", "w_gate",
+                                                          "w_up", "w_down"))
+        attn_layers = hybrid.n_invocations(cfg)
+        applied = n + (attn_layers - 1) * dense
+    elif cfg.family == "ssm":
+        attn_layers = 0
     window = cfg.window if cfg.attn_kind == "swa" else 0
     pairs = band_pairs(seq, seq, True, window)
-    weights = 6 * n * batch * seq
-    attention = 3 * 4 * batch * cfg.num_heads * cfg.head_dim * pairs * cfg.num_layers
-    return {"params": n, "weights_flop": weights, "attention_flop": attention,
-            "attention_pairs_per_row_batch": pairs, "model_flop": weights + attention}
+    weights = 6 * applied * batch * seq
+    attention = 3 * 4 * batch * cfg.num_heads * cfg.head_dim * pairs * attn_layers
+    return {"params": n, "params_applied_per_token": applied, "weights_flop": weights,
+            "attention_flop": attention, "attention_pairs_per_row_batch": pairs,
+            "model_flop": weights + attention}
 
 
 def free_memory(torch) -> None:
@@ -776,10 +873,12 @@ def free_memory(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def run_train_step(torch, runtime, cfg):
+def run_train_step(torch, runtime, cfg, phase, moves):
     """The DaeMon training step at full width: make_train_step(cfg,
     movement="daemon", movement_cfg=DAEMON_AGGRESSIVE), batch 2 x 4096 from
     the port's TokenPipeline (seed 0), 4 timed steps then one profiled.
+    ``moves`` is (folded gradients, page-class weights) a step: K1 and K2
+    must each launch their sum a step, K3 and K4 never.
 
     The hashed tokens are random and each step's batch is new, so at vocab
     32000 two effective updates (step 1's lr is 0) move a new batch's loss
@@ -809,7 +908,8 @@ def run_train_step(torch, runtime, cfg):
     copied = sum(is_page_class(tuple(p.shape)) for p in nn.tree_leaves(params))
     want = {"block_quant.quantize": folded + copied, "block_quant.dequantize": folded + copied,
             "flash_attention.forward": 0, "mamba_scan.forward": 0}
-    require(folded + copied == 18, f"train_step: {folded} folded + {copied} copied tensors, not 18")
+    require((folded, copied) == moves,
+            f"{phase}: {folded} folded + {copied} copied tensors, not {moves[0]} + {moves[1]}")
 
     losses, times, per_step, batches = [], [], [], []
 
@@ -834,8 +934,8 @@ def run_train_step(torch, runtime, cfg):
         runtime.reset_launches()
         prof = device_profile(torch, lambda: losses.append(float(one_step()["loss"])),
                               ops=("aten::mm", "aten::bmm", "aten::_softmax",
-                                   "aten::_softmax_backward_data", "daemon_step.grads",
-                                   "daemon_step.fold", "daemon_step.adamw",
+                                   "aten::_softmax_backward_data", "aten::mul", "aten::cat",
+                                   "daemon_step.grads", "daemon_step.fold", "daemon_step.adamw",
                                    "daemon_step.working_copy"))
         per_step.append(dict(runtime.LAUNCHES))
     finally:
@@ -851,9 +951,12 @@ def run_train_step(torch, runtime, cfg):
     breakdown = {
         "device_busy_ms": prof["device_busy_ms"],
         "weight_and_head_gemms_ms (aten::mm)": ops["aten::mm"],
-        "attention_products_ms (aten::bmm: forward, recompute, backward)": ops["aten::bmm"],
+        "batched_products_ms (aten::bmm: attention's products, the SSM bodies' einsums; "
+        "forward, recompute, backward)": ops["aten::bmm"],
         "attention_softmax_ms (forward, recompute, backward)":
             ops["aten::_softmax"] + ops["aten::_softmax_backward_data"],
+        "mul_ms (aten::mul: the scans' combines among them)": ops["aten::mul"],
+        "cat_ms (aten::cat: the doubling scan's shifts among them)": ops["aten::cat"],
         "block_quant_ms (K1 + K2)": prof["block_quant_ms"],
         "fold_aten_ms (the fold's PyTorch ops; K1/K2 apart)": ops["daemon_step.fold"],
         "adamw_ms": ops["daemon_step.adamw"],
@@ -862,7 +965,7 @@ def run_train_step(torch, runtime, cfg):
         "forward and loss, the backward runs on autograd's thread)": spans,
         "host_idle_share": prof["device_idle_share"],
     }
-    emit("train_step", arch=cfg.name, batch=batch_size, seq_len=TRAIN_SEQ,
+    emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size, seq_len=TRAIN_SEQ,
          tokens_per_step=tokens, movement="daemon (DAEMON_AGGRESSIVE)", steps=TRAIN_STEPS,
          losses=losses, first_batch_loss_after_training=first_again,
          last_below_first=losses[TRAIN_STEPS - 1] < losses[0],
@@ -872,16 +975,16 @@ def run_train_step(torch, runtime, cfg):
          mfu_peak="989 TFLOP/s bf16 (H100 SXM data sheet)",
          residual_abs_sum=residual, launches_per_step=per_step,
          nvidia_smi=nvidia_smi())
-    emit("train_step", part="one profiled step (the profiler slows the host)",
+    emit(phase, part="one profiled step (the profiler slows the host)",
          breakdown=breakdown, **prof)
 
     for i, launches in enumerate(per_step):
-        require(launches == want, f"train_step {i}: launches {launches}, not {want}")
+        require(launches == want, f"{phase} {i}: launches {launches}, not {want}")
     require(all(math.isfinite(x) for x in losses + [first_again]),
-            f"train_step: non-finite losses {losses}, {first_again}")
-    require(first_again < losses[0], f"train_step: training did not lower the first batch's "
+            f"{phase}: non-finite losses {losses}, {first_again}")
+    require(first_again < losses[0], f"{phase}: training did not lower the first batch's "
                                      f"loss: {losses[0]} -> {first_again}")
-    require(residual > 0, "train_step: the error-feedback residual is zero")
+    require(residual > 0, f"{phase}: the error-feedback residual is zero")
     # the working copy is the plain version of the master's: the int8 round
     # trip of each page-class weight, a bf16 cast of the rest, bit for bit
     with torch.no_grad():
@@ -891,19 +994,19 @@ def run_train_step(torch, runtime, cfg):
             else:
                 expect = m.to(torch.bfloat16)
             require(torch.equal(w, expect),
-                    f"train_step: a working-copy leaf of shape {tuple(m.shape)} differs "
+                    f"{phase}: a working-copy leaf of shape {tuple(m.shape)} differs "
                     "from the plain version of the master's")
             del expect
-    emit("train_step", working_copy="page-class leaves == dequantize_ref(quantize_ref(master)), "
-                                    "others == master.to(bf16), bit for bit: ok")
-    check_fold(torch, cfg, params, state.residual, batches[-1])
+    emit(phase, working_copy=f"{copied} page-class leaves == dequantize_ref(quantize_ref("
+                             "master)), others == master.to(bf16), bit for bit: ok")
+    check_fold(torch, cfg, params, state.residual, batches[-1], phase, folded)
     total = {k: sum(launches[k] for launches in per_step) for k in runtime.LAUNCHES}
     del params, state, batches
     free_memory(torch)
     return total
 
 
-def check_fold(torch, cfg, params, residual, batch):
+def check_fold(torch, cfg, params, residual, batch, phase, n_foldable):
     """The int8 fold at full width on real gradients: one more step's grads
     under the final working copy and the live residual go through
     ``daemon_step.fold`` (K1/K2 on every foldable leaf) and through its plain
@@ -927,13 +1030,13 @@ def check_fold(torch, cfg, params, residual, batch):
             for key, got, want in (("arrived", arrived, expect), ("residual", r_k, g32 - expect)):
                 err = float((got - want).abs().max())
                 worst[key] = max(worst[key], err)
-                require(torch.equal(got, want), f"train_step fold {tuple(g.shape)}: the {key} "
+                require(torch.equal(got, want), f"{phase} fold {tuple(g.shape)}: the {key} "
                                                 f"gradient differs from the plain fold by {err}")
             folded += 1
             del g32, expect, r_k, arrived
     del grads
-    require(folded == 11, f"train_step fold: {folded} foldable gradients, not 11")
-    emit("train_step", fold_check=f"{folded} folded gradients at full width == the plain fold "
+    require(folded == n_foldable, f"{phase} fold: {folded} foldable gradients, not {n_foldable}")
+    emit(phase, fold_check=f"{folded} folded gradients at full width == the plain fold "
                                   "(dequantize_ref(quantize_ref(g + r)), g + r - that), "
                                   "bit for bit: ok", max_abs_err=worst)
 
@@ -1264,7 +1367,7 @@ def run_reference(torch):
 
     tol = 8e-2  # bf16 compute on both sides, rounded at different places
     worst = {}
-    for arch in (ARCH, "qwen3-14b", SSM_ARCH):
+    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH):
         cfg = get_config(arch).reduced()
         master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                                 torch.device("cpu"))
@@ -1284,14 +1387,17 @@ def run_reference(torch):
         worst[arch] = max(float((a - b).abs().max()) for a, b in zip(outs["cpu"], outs["cuda"]))
         require(worst[arch] <= tol, f"{arch} reduced: card vs CPU logits differ by {worst[arch]}")
     emit("reference", max_logit_diff_card_vs_cpu=worst, tol=tol)
-    run_reference_train(torch)
+    for arch in (ARCH, HYBRID_ARCH, SSM_ARCH):
+        run_reference_train(torch, arch)
 
 
-def run_reference_train(torch):
-    """3 DAEMON_AGGRESSIVE train steps of the reduced danube (SWA window 16 <
-    seq 64) on the card (K1/K2 in the fold and the working copy, nn.attention
-    in the loss) and on the CPU (plain versions), from the same state and
-    batches: the losses agree within the CPU parity tests' LOSS_RTOL."""
+def run_reference_train(torch, arch):
+    """3 DAEMON_AGGRESSIVE train steps of a reduced model (danube: SWA window
+    16 < seq 64; zamba2: the shared block, Mamba2's SSD body; falcon-mamba:
+    the chunked scan) on the card (K1/K2 in the fold and the working copy,
+    nn.attention and the chunked scan in the loss) and on the CPU (plain
+    versions), from the same state and batches: the losses agree within the
+    CPU parity tests' LOSS_RTOL."""
     from repro_torch.configs import get_config
     from repro_torch.core import movement as mv
     from repro_torch.data import DataConfig, TokenPipeline
@@ -1299,7 +1405,7 @@ def run_reference_train(torch):
     from repro_torch.models import model as M
     from repro_torch.models import nn
 
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                             torch.device("cpu"))
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
@@ -1321,10 +1427,10 @@ def run_reference_train(torch):
             losses[name].append(float(m["loss"]))
         residual[name] = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    require(rel <= LOSS_RTOL, f"reduced danube training: card vs CPU losses differ by {rel} "
+    require(rel <= LOSS_RTOL, f"reduced {arch} training: card vs CPU losses differ by {rel} "
                               f"(relative): {losses}")
-    require(residual["cuda"] > 0, "reduced danube training: the residual is zero on the card")
-    emit("reference", part="3 DAEMON_AGGRESSIVE train steps, reduced danube", losses=losses,
+    require(residual["cuda"] > 0, f"reduced {arch} training: the residual is zero on the card")
+    emit("reference", part=f"3 DAEMON_AGGRESSIVE train steps, reduced {arch}", losses=losses,
          max_relative_loss_diff_card_vs_cpu=rel, tol=LOSS_RTOL, residual_abs_sum=residual)
 
 
@@ -1337,6 +1443,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
+    from repro_torch.models import hybrid
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1358,22 +1465,34 @@ def main() -> int:
     emit("build", wall_s=time.perf_counter() - t0, per_library_s=seconds, ptxas=ptxas,
          libraries=[runtime.library_path(n).name for n in runtime.SOURCES])
 
-    cfg, ssm_cfg = get_config(ARCH), get_config(SSM_ARCH)
+    cfg, ssm_cfg, hybrid_cfg = get_config(ARCH), get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     k1, k2 = check_block_quant(torch, cfg)
     k3 = check_flash_attention(torch, cfg)
     torch.cuda.empty_cache()
     k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
 
-    per_phase = {"serve": run_serve(torch, runtime, "serve", ARCH, "flash_attention.forward")}
+    per_phase = {"serve": run_serve(torch, runtime, "serve", ARCH,
+                                    {"flash_attention.forward": cfg.num_layers})}
     torch.cuda.empty_cache()
     per_phase["int8_copy"] = run_int8_copy(torch, runtime, cfg)
     torch.cuda.empty_cache()
-    per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", SSM_ARCH, "mamba_scan.forward")
+    per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", SSM_ARCH,
+                                       {"mamba_scan.forward": ssm_cfg.num_layers})
     torch.cuda.empty_cache()
     per_phase["profile_ssm"] = run_ssm_profile(torch, runtime, ssm_cfg)
     free_memory(torch)
-    per_phase["train_step"] = run_train_step(torch, runtime, cfg)
+    ninv = hybrid.n_invocations(hybrid_cfg)
+    per_phase["serve_hybrid"] = run_serve(torch, runtime, "serve_hybrid", HYBRID_ARCH,
+                                          {"flash_attention.forward": ninv,
+                                           "mamba_scan.forward": 0})
+    free_memory(torch)
+    per_phase["profile_hybrid"] = run_hybrid_profile(torch, runtime, hybrid_cfg)
+    per_phase["train_step"] = run_train_step(torch, runtime, cfg, "train_step", (11, 7))
+    per_phase["train_hybrid"] = run_train_step(torch, runtime, hybrid_cfg, "train_hybrid", (16, 4))
+    per_phase["train_ssm"] = run_train_step(
+        torch, runtime, dataclasses.replace(ssm_cfg, num_layers=SSM_TRAIN_LAYERS), "train_ssm",
+        (9, 3))
     per_phase["collectives"] = run_collectives(torch, runtime, cfg)
     run_checkpoint(torch, cfg)
     per_phase["train"] = run_train(torch, runtime)
@@ -1425,7 +1544,8 @@ def main() -> int:
          "share_of_bound": k3["share_of_bound"],
          "achieved_tflop_per_s": k3["achieved_tflop_per_s"],
          "hgmma_instructions": k3["hgmma_instructions"],
-         "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA)"},
+         "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA); zamba2's "
+                "serving shape is on the kernels.flash_attention line"},
         {"name": "mamba_scan.forward (K4)", "route": "cuda",
          "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:27",

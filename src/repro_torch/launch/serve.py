@@ -5,6 +5,8 @@ decode on one device, with the DaeMon working copy of the weights.
         --batch 2 --prompt-len 8192 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --batch 2 --prompt-len 8192 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --batch 2 --prompt-len 8192 --gen 16
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -84,8 +86,8 @@ def serve(
 
 
 def _grow_cache(cfg, cache, total_len: int):
-    """Pad the seq dim (axis 2: [L, B, S, ...]) of attention cache buffers up
-    to total_len.  An SWA cache is a ring of at most ``window`` slots: one
+    """Pad the seq dim (axis 2: [L or invocations, B, S, ...]) of attention
+    cache buffers up to total_len.  An SWA cache is a ring of at most ``window`` slots: one
     already ``window`` long stays put, and a shorter one (a prompt shorter
     than the window) grows to ``min(window, total_len)``, not to total_len,
     so decode keeps attending inside the window.  Its slots 0..prompt_len-1

@@ -2,8 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --batch 2 --seq 4096 --steps 3 --movement daemon
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+        --batch 2 --seq 4096 --steps 3 --movement daemon
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --steps 20 --batch 4 --seq 32 --movement daemon --device cpu --ckpt-dir /tmp/ck
+
+The dense, SSM (falcon-mamba: the chunked scan, never kernel K4) and hybrid
+(zamba2) families train; the others raise with their ROADMAP item.
 
 Wires together: config -> data pipeline -> (baseline | daemon) train step ->
 async checkpointing -> supervisor (heartbeat + straggler policy) ->

@@ -1,8 +1,8 @@
-"""Model API of the port (port of ``repro.models.model``), dense and SSM
-families.
+"""Model API of the port (port of ``repro.models.model``): the dense, SSM
+and hybrid families.
 
     model_specs(cfg)            -> ParamSpec tree (single source of truth)
-    loss_fn(cfg, params, batch) -> (loss, metrics)      [train, dense only]
+    loss_fn(cfg, params, batch) -> (loss, metrics)      [train]
     prefill(cfg, params, batch) -> (last_logits, cache) [inference-prefill]
     decode_step(cfg, params, cache, token, pos)         [inference-decode]
     cache_specs(cfg, batch, seq_len)
@@ -13,42 +13,32 @@ their ROADMAP items land.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba, nn, transformer
+from repro_torch.models import hybrid, mamba, nn, transformer
 from repro_torch.models.nn import ParamSpec
-from repro_torch.models.transformer import _layer
 
 LOSS_CHUNK = 256
 COMPUTE_DTYPE = torch.bfloat16
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 13 (MoE + MLA)",
-    "hybrid": "ROADMAP Queue 1 item 12 (hybrid family)",
     "vlm": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
     "audio": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
             )
         raise ValueError(cfg.family)
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    _check_ported(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported yet: ROADMAP Queue 1 item 18 "
-            "(SSM training: the chunked scan, since kernel K4 is forward-only)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -58,12 +48,15 @@ def _check_trainable(cfg: ModelConfig) -> None:
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     _check_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         s: Dict[str, Any] = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
-            "blocks": nn.stack_specs(mamba.mamba1_specs(cfg), cfg.num_layers),
             "ln_f": ParamSpec((cfg.d_model,), (None,), "ones"),
         }
+        if cfg.family == "ssm":
+            s["blocks"] = nn.stack_specs(mamba.mamba1_specs(cfg), cfg.num_layers)
+        else:
+            s["trunk"] = hybrid.trunk_specs(cfg)
         if not cfg.tie_embeddings:
             s["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
         return s
@@ -71,7 +64,7 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Every parameter of a dense or SSM model is active, so ``active_only``
+    """Every parameter of a dense, SSM or hybrid model is active, so ``active_only``
     changes nothing until the MoE family is ported."""
     return nn.param_count(model_specs(cfg))
 
@@ -106,24 +99,31 @@ def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                    training: bool = False, make_cache: bool = False):
-    """Returns (hidden, cache, aux_loss)."""
-    if training:
-        _check_trainable(cfg)
-    else:
-        _check_ported(cfg)
+    """Returns (hidden, cache, aux_loss).  ``training`` takes the
+    differentiable paths (``nn.attention``, the chunked SSM scan) and
+    rematerialises each layer per ``cfg.remat``; otherwise prefill goes
+    through the kernels."""
+    _check_ported(cfg)
     x = _embed(cfg, params, batch["tokens"])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
+        block = nn.remat(functools.partial(mamba.mamba1_forward, cfg, make_cache=make_cache,
+                                         training=training), cfg, training)
         layer_caches = []
-        for i in range(cfg.num_layers):
-            x, c = mamba.mamba1_forward(cfg, _layer(params["blocks"], i), x,
-                                        make_cache=make_cache)
+        for p_l in nn.unstack(params["blocks"]):
+            x, c = block(p_l, x)
             layer_caches.append(c)
         cache = None
         if make_cache:  # stacked on a leading layers axis; the state stays f32
             cache = {key: torch.stack([c[key] for c in layer_caches]) for key in ("state", "conv")}
         x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, cache, zero
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "hybrid":  # the embedding is both the trunk's input and its side input
+        x, cache = hybrid.trunk_forward(cfg, params["trunk"], x, x, positions, training=training,
+                                        make_cache=make_cache)
+        x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return x, cache, zero
     x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, training=training,
                                               make_cache=make_cache)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -141,7 +141,6 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, trainin
     time (one chunk when the sequence does not divide), with f32 logits from
     bf16 operands as in ``logits_at``; labels < 0 are masked; a z-loss on
     logsumexp.  ``metrics`` hold detached values: loss, ce, aux, tokens."""
-    _check_trainable(cfg)
     hidden, _, aux = forward_hidden(cfg, params, batch, training=training)
     labels = batch["labels"].long()
     w = _head_weight(cfg, params).to(COMPUTE_DTYPE).to(torch.float32)
@@ -185,9 +184,11 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
     x = _embed(cfg, params, token)[:, None, :]
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
-            x, c = mamba.mamba1_decode(cfg, _layer(params["blocks"], i), x, _layer(cache, i))
+            x, c = mamba.mamba1_decode(cfg, nn.layer(params["blocks"], i), x, nn.layer(cache, i))
             cache["state"][i] = c["state"]
             cache["conv"][i] = c["conv"]
+    elif cfg.family == "hybrid":
+        x, cache = hybrid.trunk_decode(cfg, params["trunk"], x, x, cache, pos)
     else:
         x, cache = transformer.trunk_decode(cfg, params, x, cache, pos)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -198,4 +199,6 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
     _check_ported(cfg)
     if cfg.family == "ssm":
         return nn.stack_specs(mamba.mamba1_cache_specs(cfg, batch), cfg.num_layers)
+    if cfg.family == "hybrid":
+        return hybrid.cache_specs(cfg, batch, seq_len)
     return transformer.cache_specs(cfg, batch, seq_len)

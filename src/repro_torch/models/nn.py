@@ -9,11 +9,20 @@ JAX-initialised parameters and never compare inits.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+if TYPE_CHECKING:
+    from repro_torch.configs.base import ModelConfig
 
 PyTree = Any
 NEG_INF = -1e30
@@ -98,6 +107,42 @@ def param_count(specs: PyTree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
 
 
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree."""
+    return tree_map(lambda a: a[i], tree)
+
+
+def unstack(tree) -> List[Any]:
+    """The per-layer trees of a stacked tree, as views.  ``unbind``'s
+    backward stacks the layers' gradients once, where indexing each layer
+    would add a zero-filled gradient of the whole stack per layer."""
+    flat = [torch.unbind(a, 0) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, list(one)) for one in zip(*flat)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: keep the weight products
+    (``aten.mm``), recompute the rest (attention's batched products too)."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, cfg: "ModelConfig", training: bool):
+    """Port of JAX's ``_remat``, for every family's layers: ``"full"``
+    recomputes the whole layer in backward, ``"dots"`` all but its weight
+    products, ``"nothing"`` keeps everything.  Recomputation gives the same
+    values bit for bit."""
+    if not training or cfg.remat == "nothing":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return functools.partial(checkpoint, fn, **kw)
+
+
 # --------------------------------------------------------------------------
 # basic ops
 # --------------------------------------------------------------------------
@@ -110,8 +155,42 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (x * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(dt)
 
 
+def _logistic_bf16(x: torch.Tensor) -> torch.Tensor:
+    """1/(1 + exp(-x)) with each op rounded to bf16, in place after the neg."""
+    return torch.neg(x).exp_().add_(1).reciprocal_()
+
+
+class _LogisticBf16(torch.autograd.Function):
+    """The bf16 logistic with JAX's jvp, ``g * (y * (1 - y))``, as its
+    backward.  Differentiating 1/(1 + exp(-x)) op by op would give
+    0 * inf = NaN wherever exp(-x) overflows (x < -88.7)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _logistic_bf16(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``jax.nn.sigmoid`` as XLA evaluates it: on bf16, 1/(1 + exp(-x))
+    with each op rounded to bf16, which misses the correctly rounded sigmoid
+    by an ulp on 1106 of the 33860 zero or normal bf16 inputs with |x| <= 80
+    and equals XLA's on all of them, once XLA's flush of subnormal results
+    is applied (``tests/test_torch_models.py``); in f32, the correctly
+    rounded value.  Both differentiate as JAX's ``logistic`` does."""
+    if x.dtype == torch.bfloat16:
+        return _LogisticBf16.apply(x)
+    return torch.sigmoid(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    return x * sigmoid(x)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -19,11 +19,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
@@ -261,53 +256,19 @@ def apply_block_decode(cfg: ModelConfig, p, x, cache, pos: int, *, is_moe: bool)
 # --------------------------------------------------------------------------
 
 
-def _layer(tree, i: int):
-    return nn.tree_map(lambda a: a[i], tree)
-
-
-def _unstack(tree) -> List[Any]:
-    """The per-layer trees of a stacked tree, as views.  ``unbind``'s
-    backward stacks the layers' gradients once, where indexing each layer
-    would add a zero-filled gradient of the whole stack per layer."""
-    flat = [torch.unbind(a, 0) for a in nn.tree_leaves(tree)]
-    return [nn.tree_unflatten(tree, list(layer)) for layer in zip(*flat)]
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    """JAX's ``checkpoint_dots_with_no_batch_dims``: keep the weight products
-    (``aten.mm``), recompute the rest (attention's batched products too)."""
-    if op == torch.ops.aten.mm.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat(fn, cfg: ModelConfig, training: bool):
-    """Port of JAX's ``_remat``: ``"full"`` recomputes the whole layer in
-    backward, ``"dots"`` all but its weight products, ``"nothing"`` keeps
-    everything.  Recomputation gives the same values bit for bit."""
-    if not training or cfg.remat == "nothing":
-        return fn
-    kw = {"use_reentrant": False}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    elif cfg.remat != "full":
-        raise ValueError(f"unknown remat {cfg.remat!r}")
-    return functools.partial(checkpoint, fn, **kw)
-
-
 def trunk_forward(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor, *,
                   training: bool = False, make_cache: bool = False):
     """x: (B, S, d) -> (hidden, cache_by_segment, aux_loss)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for seg in segments(cfg):
-        block = _remat(
+        block = nn.remat(
             functools.partial(apply_block, cfg, is_moe=seg.is_moe, make_cache=make_cache,
                               training=training),
             cfg, training,
         )
         layer_caches = []
-        for p_l in _unstack(params[seg.name]):
+        for p_l in nn.unstack(params[seg.name]):
             x, cache, a = block(p_l, x, positions)
             aux_total = aux_total + a
             layer_caches.append(cache)
@@ -323,7 +284,7 @@ def trunk_decode(cfg: ModelConfig, params, x, caches, pos: int):
     for seg in segments(cfg):
         for i in range(seg.n_layers):
             x, _ = apply_block_decode(
-                cfg, _layer(params[seg.name], i), x, _layer(caches[seg.name], i), pos,
+                cfg, nn.layer(params[seg.name], i), x, nn.layer(caches[seg.name], i), pos,
                 is_moe=seg.is_moe,
             )
     return x, caches

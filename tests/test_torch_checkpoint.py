@@ -20,10 +20,11 @@ from repro.configs import get_config as jax_get_config
 from repro.core import movement as jax_mv
 from repro.models import model as JM
 from repro.models import nn as jnn
+from repro.optim import adamw as jax_adamw
 
 from repro_torch.checkpoint import CheckpointManager, ckpt
 from repro_torch.configs import get_config
-from repro_torch.convert import daemon_state_from_numpy, params_from_numpy
+from repro_torch.convert import adamw_state_from_numpy, daemon_state_from_numpy, params_from_numpy
 from repro_torch.core import movement as mv
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.train import train
@@ -34,6 +35,11 @@ jax.config.update("jax_platform_name", "cpu")
 
 ARCH = "h2o-danube-1.8b"
 N_KEYS = 61  # reduced danube's (params, DaemonState): 12 leaves x 5 trees + the step
+HYBRID = "zamba2-1.2b"
+# reduced zamba2 has 27 leaves (the trunk's 9 stacked Mamba2 and 15 shared-
+# block ones, embed, ln_f, lm_head): (params, AdamWState) 3 trees + the step,
+# (params, DaemonState) 5 trees + the step
+N_KEYS_HYBRID = {"baseline": 3 * 27 + 1, "daemon": 5 * 27 + 1}
 
 
 @pytest.fixture
@@ -60,12 +66,16 @@ def _bits(x):
     return a.shape, name, np.ascontiguousarray(a).tobytes()
 
 
-def _jax_state(seed=0):
-    """Reduced danube's JAX (params, DaemonState), every leaf drawn from a
-    seed (bf16 working copy, f32 master/moments/residual, int32 step)."""
-    cfg_j = jax_get_config(ARCH).reduced()
+def _jax_state(seed=0, arch=ARCH, movement="daemon"):
+    """A reduced model's JAX (params, DaemonState), every leaf drawn from a
+    seed (bf16 working copy, f32 master/moments/residual, int32 step); with
+    ``movement="baseline"``, its (f32 params, AdamWState)."""
+    cfg_j = jax_get_config(arch).reduced()
     master = jnn.init_params(JM.model_specs(cfg_j), jax.random.key(seed))
-    tree = (jax_mv.working_copy(master, jax_mv.DAEMON_DEFAULT), jax_mv.init_state(master))
+    if movement == "daemon":
+        tree = (jax_mv.working_copy(master, jax_mv.DAEMON_DEFAULT), jax_mv.init_state(master))
+    else:
+        tree = (master, jax_adamw.init(master))
     rng = np.random.default_rng(seed)
 
     def draw(a):
@@ -77,18 +87,20 @@ def _jax_state(seed=0):
     return jax.tree.map(draw, tree)
 
 
-def _port_like():
-    """The port's own (params, DaemonState) of reduced danube, zeros."""
-    cfg = get_config(ARCH).reduced()
+def _port_like(arch=ARCH):
+    """The port's own (params, DaemonState) of a reduced model, zeros."""
+    cfg = get_config(arch).reduced()
     master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(0),
                             torch.device("cpu"))
     state = mv.init_state(nn.tree_map(torch.zeros_like, master))
     return mv.working_copy(state.master, mv.DAEMON_DEFAULT), state
 
 
-def _port_state(tree_j):
+def _port_state(tree_j, movement="daemon"):
     params_j, state_j = tree_j
-    return params_from_numpy(params_j, "cpu"), daemon_state_from_numpy(state_j, "cpu")
+    if movement == "daemon":
+        return params_from_numpy(params_j, "cpu"), daemon_state_from_numpy(state_j, "cpu")
+    return params_from_numpy(params_j, "cpu"), adamw_state_from_numpy(state_j, "cpu")
 
 
 # --------------------------------------------------------------------------
@@ -212,6 +224,43 @@ def test_port_written_checkpoint_restores_in_jax(tmp_path, zstd):
     assert list(got) == list(want)
     for key in want:
         assert got[key].shape == want[key].shape and got[key].tobytes() == want[key].tobytes(), key
+
+
+@pytest.mark.parametrize("movement", ["baseline", "daemon"])
+def test_hybrid_port_save_restores_in_jax(tmp_path, zstd, movement):
+    """Reduced zamba2's (params, AdamWState) and (params, DaemonState), saved
+    by the port and restored by JAX: the same manifest and bytes.  JAX can
+    use the baseline tree (all f32 but the int32 step) in its dtypes; it
+    reads the daemon tree's bf16 leaves back as numpy void (ROADMAP Queue
+    3), so there the bytes are held."""
+    tree_j = _jax_state(seed=4, arch=HYBRID, movement=movement)
+    CheckpointManager(tmp_path).save(5, _port_state(tree_j, movement), {"step": 5})
+    manifest = json.loads((tmp_path / "step_00000005" / "manifest.json").read_text())
+    assert len(manifest["arrays"]) == N_KEYS_HYBRID[movement]
+    assert "0/trunk/shared/lora_q_b" in manifest["arrays"]
+    restored, extra = jax_ckpt.CheckpointManager(tmp_path).restore(5, tree_j)
+    assert extra == {"step": 5}
+    got, want = jax_ckpt._flatten(restored), jax_ckpt._flatten(tree_j)
+    assert list(got) == list(want) == list(manifest["arrays"])
+    for key in want:
+        assert movement == "daemon" or got[key].dtype == want[key].dtype, key
+        assert got[key].shape == want[key].shape and got[key].tobytes() == want[key].tobytes(), key
+
+
+def test_hybrid_jax_save_restores_in_port(tmp_path, zstd):
+    """Reduced zamba2's DaeMon state (bf16 working copy, f32 master, moments
+    and residual), saved by JAX and restored by the port bit for bit."""
+    tree_j = _jax_state(seed=5, arch=HYBRID)
+    jax_ckpt.CheckpointManager(tmp_path).save(9, tree_j, {"step": 9, "arch": HYBRID})
+    like = _port_like(HYBRID)
+    (params, state), extra = CheckpointManager(tmp_path).restore(None, like)
+    assert extra == {"step": 9, "arch": HYBRID}
+    ours, theirs = dict(ckpt._items((params, state))), jax_ckpt._flatten(tree_j)
+    assert list(ours) == list(theirs) and len(ours) == N_KEYS_HYBRID["daemon"]
+    for key, a in theirs.items():
+        assert _bits(ours[key]) == _bits(a), key
+    assert all(t.dtype == torch.bfloat16 for t in nn.tree_leaves(params))
+    assert isinstance(state, mv.DaemonState) and int(state.adam.step) == int(tree_j[1].adam.step)
 
 
 def test_uncompressed_serialisation_round_trips_bf16():

@@ -178,15 +178,6 @@ def test_kernel_wrappers_refuse_autograd():
     runtime.forward_only("selective_scan (K4)", torch.ones(2), torch.ones(2))
 
 
-def test_ssm_training_names_its_roadmap_item():
-    cfg = get_config("falcon-mamba-7b").reduced()
-    params = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(0),
-                            torch.device("cpu"))
-    batch = {k: torch.zeros(1, 8, dtype=torch.int32) for k in ("tokens", "labels")}
-    with pytest.raises(NotImplementedError, match="item 18"):
-        M.loss_fn(cfg, params, batch)
-
-
 # --------------------------------------------------------------------------
 # the int8 gradient fold
 # --------------------------------------------------------------------------
