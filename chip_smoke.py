@@ -14,7 +14,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               with the HGMMA count of its tensor-core kernels' SASS and
               scaled_dot_product_attention's time beside it, K4 mamba_scan
               with no spills and its shares of the bound and of the SFU's
-              exp floor);
+              exp floor); K1/K2 also at deepseek-v2-lite's 15 page-class
+              shapes at full depth, three of them 4.80e9-element expert
+              stacks held on row slices across element 2^31;
   4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
   5. int8     the page-class int8 working copy of the same master (K1 and K2
@@ -33,42 +35,58 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
   9. profile_hybrid a second zamba2 prefill under torch.profiler: K3's, the
               weight GEMMs', the SSD einsums' and the other (elementwise)
               kernels' shares of its device time;
- 10. train_step the DaeMon training step of h2o-danube-1.8b at full width and
+ 10. serve_moe serve("deepseek-v2-lite-16b", reduced=False, batch=2,
+              prompt_len=8192, gen_tokens=16) at full width and depth: no
+              kernel may launch (MLA's Dq 192 != Dv 128, so no K3);
+ 11. int8_copy_moe the streamed DAEMON_AGGRESSIVE working copy
+              (init_working_copy: no f32 master beside it; K1 = K2 = 15),
+              prefill and 4 greedy decode steps from it, against the bf16
+              copy (logits kept on the host);
+ 12. profile_moe that bf16 copy's prefill and decode under torch.profiler:
+              MLA attention's, the expert products', the routing and
+              dispatch's and the rest's shares of prefill, decode's launches
+              a token and idle share;
+ 13. train_step the DaeMon training step of h2o-danube-1.8b at full width and
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
               K2 must launch 18 times a step (11 folded gradients, 7 working-
               copy weights), K3 and K4 never; falling losses, a live residual,
               a working copy equal to the plain int8 round trip, and the fold
               of one more step's gradients equal to the plain fold;
- 11. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
+ 14. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
               20 a step (16 folded gradients, 4 working-copy weights);
- 12. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
+ 15. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
               of 64 layers (the whole model's training state, ~131 GB, does
               not fit the card): K1 = K2 = 12 a step (9 + 3), the chunked
               scan in training, K4 never;
- 13. collectives  the DaeMon collectives on one process group of world size 1
+ 16. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
+              first 4 of 27 layers (the dense layer and 3 MoE layers; the
+              whole model's state, ~314 GB, does not fit): K1 = K2 = 38 a
+              step (23 + 15), the first batch's cross-entropy lowered;
+ 17. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
               chunked all-gathers of its 7 stacked weights; K1/K2 must launch
               inside them, and the results must equal the same calls on CPU
               copies (gloo, plain versions) bit for bit; timed, with the wire
               bytes int8 against f32;
- 14. checkpoint  save_async's host snapshot of full-width danube's (params,
+ 18. checkpoint  save_async's host snapshot of full-width danube's (params,
               DaemonState), timed; reduced danube's state after 2 card train
               steps serialised and restored onto the card bit for bit; save
               without zstandard raising before it writes;
- 15. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+ 19. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 16. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 20. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 17. reference the reduced models (danube, qwen3, falcon-mamba, zamba2) on the
-              card against the plain path on the CPU, and 3 DAEMON_AGGRESSIVE
-              train steps each of reduced danube, zamba2 and falcon-mamba from
-              the same state and batches;
+ 21. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
+              deepseek, dbrx) on the card against the plain path on the CPU,
+              and 3 DAEMON_AGGRESSIVE train steps each of reduced danube,
+              zamba2, falcon-mamba and deepseek from the same state and
+              batches; the MoE routed on the card as on the CPU;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-13, 15) and read just after; launches made to compare a
+main-path phase (4-17, 19) and read just after; launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -104,11 +122,16 @@ SMS, SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 132, 16, 1.98e9
 ARCH = "h2o-danube-1.8b"
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "zamba2-1.2b"
+MOE_ARCH = "deepseek-v2-lite-16b"
 SSM_TRAIN_LAYERS = 8  # falcon's training phase: its first 8 of 64 layers
+# deepseek's training phase: its first 4 of 27 layers (the dense layer and 3
+# MoE layers); the whole model's training state, ~314 GB, does not fit
+MOE_TRAIN_LAYERS = 4
 BATCH, PROMPT, GEN = 2, 8192, 16
 TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
 TRAIN_STEPS = 4  # timed, then one more under the profiler
 LOSS_RTOL = 1e-3  # tests/test_torch_train.py's loss tolerance (card vs CPU here)
+PROB_TOL = 2e-2  # tests/test_torch_moe.py's: the MoE router's probabilities, card vs CPU
 SEED = 0
 
 # (B, Sq, Skv, H, KVH, D, causal, window): tests/test_kernels.py's five
@@ -362,6 +385,73 @@ def check_block_quant(torch, cfg):
          slice_tensors=[list(s) for s in slice_shapes],
          fold_only_tensors=[list(s) for s in fold_shapes])
     return k1, k2
+
+
+def check_block_quant_moe(torch, cfg):
+    """K1/K2 at deepseek-v2-lite's 15 page-class shapes at full depth, as the
+    int8 working copy gives them (f32 in, bf16 out), each timed beside its
+    byte bound.  The three expert stacks hold 26·64·2048·1408 = 4.80e9
+    elements each, past 2^31 (19.2 GB in f32): the plain version of a whole
+    one does not fit beside it, so the kernels' codes, scales and bf16
+    output are held against the plain version bit for bit on row slices (the
+    first rows, the rows around element 2^31, the last layer's last rows);
+    the other shapes whole.  The plain version is timed whole where it fits,
+    and on a stack's last layer otherwise, beside K1/K2 on the same rows."""
+    from repro_torch.core.movement.daemon_step import is_page_class
+    from repro_torch.kernels.block_quant import kernel, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    acc = {k: 0.0 for k in ("k1_ms", "k1_bound_ms", "k2_ms", "k2_bound_ms")}
+    shapes = page_class_shapes(cfg)
+    past_2_31 = 0
+    for (rows, c), full in zip(shapes, _spec_shapes(cfg, is_page_class)):
+        n = rows * c
+        x = torch.randn((rows, c), generator=gen, device=dev).mul_(3)
+        q, s = kernel.quantize(x)
+        out = kernel.dequantize(q, s, torch.bfloat16)
+        if n > 2 ** 31:
+            r31 = 2 ** 31 // c  # the row that holds element 2^31
+            spans = [(0, 2048), (r31 - 1024, r31 + 1024), (rows - 2048, rows)]
+            past_2_31 += 1
+        else:
+            spans = [(0, rows)]
+        for a, b in spans:
+            q_ref, s_ref = ref.quantize_ref(x[a:b])
+            require(torch.equal(q[a:b], q_ref) and torch.equal(s[a:b], s_ref),
+                    f"K1 {full} rows {a}:{b}: codes or scales differ from the plain version")
+            require(torch.equal(out[a:b], ref.dequantize_ref(q_ref, s_ref, torch.bfloat16)),
+                    f"K2 {full} rows {a}:{b}: differs from the plain version")
+            del q_ref, s_ref
+        t1 = time_ms(torch, lambda: kernel.quantize(x))
+        t2 = time_ms(torch, lambda: kernel.dequantize(q, s, torch.bfloat16))
+        b1 = (4 * n + n + 4 * n // 128) / HBM_BYTES_PER_S * 1e3
+        b2 = (n + 4 * n // 128 + 2 * n) / HBM_BYTES_PER_S * 1e3
+        row = {"shape": list(full), "flat": [rows, c], "elements": n, "checked_rows": spans,
+               "k1_ms": t1, "k1_bound_ms": b1, "k2_bf16_out_ms": t2, "k2_bf16_out_bound_ms": b2}
+        sub = slice(None) if len(spans) == 1 else slice(rows - rows // full[0], rows)
+        xs, qs, ss = x[sub], q[sub], s[sub]
+        row["plain_rows"] = "all" if len(spans) == 1 else f"the last layer's {xs.shape[0]}"
+        row["k1_plain_ms"] = time_ms(torch, lambda: ref.quantize_ref(xs), reps=3, warmup=1)
+        row["k2_plain_ms"] = time_ms(torch, lambda: ref.dequantize_ref(qs, ss, torch.bfloat16),
+                                     reps=3, warmup=1)
+        if len(spans) > 1:
+            row["k1_ms_same_rows"] = time_ms(torch, lambda: kernel.quantize(xs))
+            row["k2_ms_same_rows"] = time_ms(torch, lambda: kernel.dequantize(qs, ss,
+                                                                              torch.bfloat16))
+        for key, val in (("k1_ms", t1), ("k1_bound_ms", b1), ("k2_ms", t2), ("k2_bound_ms", b2)):
+            acc[key] += val
+        emit("kernels.block_quant_moe", **row)
+        del x, q, s, out, xs, qs, ss
+        free_memory(torch)
+    require(len(shapes) == 15 and past_2_31 == 3,
+            f"deepseek: {len(shapes)} page-class shapes ({past_2_31} past 2^31), not 15 (3)")
+    emit("kernels.block_quant_moe", arch=cfg.name, tensors=len(shapes),
+         stacks_past_2_31=past_2_31, **acc,
+         k1_share_of_bound=acc["k1_bound_ms"] / acc["k1_ms"],
+         k2_share_of_bound=acc["k2_bound_ms"] / acc["k2_ms"],
+         check="codes, scales and bf16 output == plain, bit for bit")
+    return acc
 
 
 _TEMPLATE_ARG = r"f|13__nv_bfloat16|Li\d+E"
@@ -837,32 +927,145 @@ def run_int8_copy(torch, runtime, cfg):
     return launches
 
 
+def run_int8_copy_moe(torch, runtime, cfg):
+    """deepseek-v2-lite at full width and depth from the streamed working
+    copy (``init_working_copy``: no f32 master beside it): first the
+    DAEMON_AGGRESSIVE copy, whose 15 page-class weights (4-D expert stacks
+    among them) must go through K1 and K2 once each, then prefill and 4
+    greedy decode steps from it (phase ``int8_copy_moe``); then the bf16
+    copy (serve's) fed the same tokens, its prefill and decode steps under
+    torch.profiler (phase ``profile_moe``: the shares of MLA's attention, the
+    expert products, the routing and dispatch, and the rest; decode's
+    launches a token and idle share), which no kernel may take.  The two
+    copies do not fit together, so they are built one after the other and
+    the logits kept on the host."""
+    from repro_torch.core import movement as mv
+    from repro_torch.core.movement.daemon_step import is_page_class
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    specs = M.model_specs(cfg)
+    paged = len(_spec_shapes(cfg, is_page_class))
+    prompt = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+                             dtype=torch.int32, device=dev)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    out = {}
+
+    def run_prefill(params):
+        logits, cache = prefill(params, {"tokens": prompt})
+        out["cache"] = _grow_cache(cfg, cache, PROMPT + 4)
+        out["logits"] = [logits.cpu()]
+
+    def run_decode(params, feed):
+        for i in range(4):
+            _, lg, out["cache"] = decode(params, out["cache"], feed[i], PROMPT + i)
+            out["logits"].append(lg.cpu())
+
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    params = mv.init_working_copy(specs, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                  mv.DAEMON_AGGRESSIVE)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    copy_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run_prefill(params)
+    toks = [torch.argmax(out["logits"][0], dim=-1).to(torch.int32).to(dev)]
+    for i in range(4):
+        tok, lg, out["cache"] = decode(params, out["cache"], toks[-1], PROMPT + i)
+        out["logits"].append(lg.cpu())
+        toks.append(tok)
+    torch.cuda.synchronize()
+    int8_logits, launches = out.pop("logits"), dict(runtime.LAUNCHES)
+    want = {"block_quant.quantize": paged, "block_quant.dequantize": paged,
+            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    require(paged == 15 and launches == want,
+            f"int8_copy_moe: launches {launches}, not {want} ({paged} page-class weights)")
+    require(all(bool(torch.isfinite(lg).all()) for lg in int8_logits),
+            "int8_copy_moe: non-finite logits")
+    del params
+    out.clear()
+    free_memory(torch)
+
+    params = mv.init_working_copy(specs, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                  mv.DAEMON_DEFAULT)
+    runtime.reset_launches()
+    ranges = ("mla.attention", "moe.experts", "moe.route", "moe.dispatch")
+    parts = []
+    for part, fn in (("prefill (bf16 copy)", lambda: run_prefill(params)),
+                     ("4 decode steps (bf16 copy)", lambda: run_decode(params, toks))):
+        prof = device_profile(torch, fn, ops=ranges)
+        # a named range's CPU-side device time overcounts here (the four
+        # ranges summed past the device's busy time on an H100)
+        prof.pop("device_ms_by_op")
+        spans, busy = prof["device_span_ms_by_range"], prof["device_busy_ms"]
+        if part.startswith("prefill"):
+            # device-bound (idle < 1 %), one stream: a range's device span,
+            # first to last kernel, is the kernels' time
+            named = {"mla_attention (its einsums, masks and softmax)": spans["mla.attention"],
+                     "expert_products (three bmm and the gate)": spans["moe.experts"],
+                     "routing_and_dispatch (router, top-k, cumsum, scatter, gather)":
+                         spans["moe.route"] + spans["moe.dispatch"]}
+            named["rest (weight GEMMs, norms, rope, head)"] = busy - sum(named.values())
+            prof.update(device_ms_by_part=named,
+                        share_of_device_time_by_part={k: v / busy for k, v in named.items()})
+        emit("profile_moe", part=part, **prof)
+        parts.append(prof)
+    profile_launches = dict(runtime.LAUNCHES)
+    require(not any(profile_launches.values()),
+            f"profile_moe: the bf16 copy's path launched {profile_launches}")
+    bf16_logits = out.pop("logits")
+    require(all(bool(torch.isfinite(lg).all()) for lg in bf16_logits),
+            "profile_moe: non-finite logits")
+    diffs = [float((a - b).abs().max()) for a, b in zip(int8_logits, bf16_logits)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(int8_logits, bf16_logits)]
+    emit("profile_moe", decode_launches_per_token=parts[1]["kernel_launches"] / 4,
+         decode_idle_share=parts[1]["device_idle_share"], launches=profile_launches)
+    emit("int8_copy_moe", arch=cfg.name, working_copy_s=copy_s,
+         working_copy_peak_memory_gb=copy_peak_gb, page_class_weights=paged, launches=launches,
+         max_logit_diff_vs_bf16_copy=max(diffs), per_step_max_logit_diff=diffs,
+         greedy_agreement_per_step=agree, logit_scale=float(bf16_logits[0].abs().max()),
+         note="step 0 is the prefill; both copies fed the int8 copy's greedy tokens")
+    del params
+    out.clear()
+    free_memory(torch)
+    return launches, profile_launches
+
+
 def train_flop(cfg, batch: int, seq: int) -> dict:
     """Model FLOP of one training step, written out: 6 per token for each
-    weight a token passes (forward 2, backward 4: every parameter, as
-    6·N·tokens counts it, and the hybrid's shared attention+MLP block's
-    matrices once more for each further invocation) plus attention's QK^T and
-    PV products, 4·B·H·dh per (q, k) pair the mask keeps, three times over
-    (forward and backward), per attention layer (per invocation of the
-    hybrid's shared block; none in the SSM family).  The SSM scans and the
-    recompute of a rematerialised layer are not counted."""
+    weight a token passes (forward 2, backward 4: every parameter but the
+    routed experts a token skips, ``param_count(active_only=True)``, and the
+    hybrid's shared attention+MLP block's matrices once more for each further
+    invocation) plus attention's QK^T and PV products, 2·B·H·(dq + dv) per
+    (q, k) pair the mask keeps (dq = dv = head_dim, but MLA's 192 and 128),
+    three times over (forward and backward), per attention layer (per
+    invocation of the hybrid's shared block; none in the SSM family).  The
+    SSM scans and the recompute of a rematerialised layer are not counted."""
     from repro_torch.models import hybrid
     from repro_torch.models import model as M
 
     n = M.param_count(cfg)
-    applied, attn_layers = n, cfg.num_layers
+    applied, attn_layers = M.param_count(cfg, active_only=True), cfg.num_layers
     if cfg.family == "hybrid":
         shared = hybrid.shared_block_specs(cfg)
         dense = sum(math.prod(shared[k].shape) for k in ("wq", "wk", "wv", "wo", "w_gate",
                                                           "w_up", "w_down"))
         attn_layers = hybrid.n_invocations(cfg)
-        applied = n + (attn_layers - 1) * dense
+        applied += (attn_layers - 1) * dense
     elif cfg.family == "ssm":
         attn_layers = 0
     window = cfg.window if cfg.attn_kind == "swa" else 0
     pairs = band_pairs(seq, seq, True, window)
+    dq, dv = cfg.head_dim, cfg.head_dim
+    if cfg.attn_kind == "mla":
+        dq, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
     weights = 6 * applied * batch * seq
-    attention = 3 * 4 * batch * cfg.num_heads * cfg.head_dim * pairs * attn_layers
+    attention = 3 * 2 * (dq + dv) * batch * cfg.num_heads * pairs * attn_layers
     return {"params": n, "params_applied_per_token": applied, "weights_flop": weights,
             "attention_flop": attention, "attention_pairs_per_row_batch": pairs,
             "model_flop": weights + attention}
@@ -885,7 +1088,11 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     by less than the batch-to-batch spread (~0.02).  That training lowers
     the loss is held where it shows: the first batch, whose gradient entered
     every update through AdamW's first moment, is taken again under the
-    final working copy.  Its numbers are printed before any check fails."""
+    final working copy; for the MoE family its cross-entropy, since its loss
+    also holds 0.01 x the aux load-balance loss, which the first steps raise
+    (deepseek-v2-lite on 4 layers: 12.37 -> 12.62 on an H100, its aux
+    doubling, while its cross-entropy fell).  Its
+    numbers are printed before any check fails."""
     from repro_torch.core import movement as mv
     from repro_torch.core.movement.daemon_step import is_foldable, is_page_class
     from repro_torch.data import DataConfig, TokenPipeline
@@ -911,7 +1118,7 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     require((folded, copied) == moves,
             f"{phase}: {folded} folded + {copied} copied tensors, not {moves[0]} + {moves[1]}")
 
-    losses, times, per_step, batches = [], [], [], []
+    losses, parts, times, per_step, batches = [], [], [], [], []
 
     def one_step():
         nonlocal params, state
@@ -927,6 +1134,7 @@ def run_train_step(torch, runtime, cfg, phase, moves):
             t0 = time.perf_counter()
             metrics = one_step()
             losses.append(float(metrics["loss"]))  # waits for the step
+            parts.append((float(metrics["ce"]), float(metrics["aux"])))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             per_step.append(dict(runtime.LAUNCHES))
@@ -941,7 +1149,9 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     finally:
         pipe.close()
     with torch.no_grad():  # the first batch again, through the same training forward
-        first_again = float(M.loss_fn(cfg, params, batches[0])[0])
+        first_again, again = M.loss_fn(cfg, params, batches[0])
+        first_again, first_ce_again = float(first_again), float(again["ce"])
+        first_aux_again = float(again["aux"])
     residual = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
 
     tokens = batch_size * TRAIN_SEQ
@@ -968,6 +1178,8 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size, seq_len=TRAIN_SEQ,
          tokens_per_step=tokens, movement="daemon (DAEMON_AGGRESSIVE)", steps=TRAIN_STEPS,
          losses=losses, first_batch_loss_after_training=first_again,
+         ce_and_aux_timed_steps=parts,
+         first_batch_ce_and_aux_after_training=[first_ce_again, first_aux_again],
          last_below_first=losses[TRAIN_STEPS - 1] < losses[0],
          step_s_each=times, step_s=step_s, tokens_per_s=tokens / step_s,
          peak_memory_gb=peak_gb, **flop,
@@ -982,8 +1194,16 @@ def run_train_step(torch, runtime, cfg, phase, moves):
         require(launches == want, f"{phase} {i}: launches {launches}, not {want}")
     require(all(math.isfinite(x) for x in losses + [first_again]),
             f"{phase}: non-finite losses {losses}, {first_again}")
-    require(first_again < losses[0], f"{phase}: training did not lower the first batch's "
-                                     f"loss: {losses[0]} -> {first_again}")
+    if cfg.family == "moe":
+        # the loss holds 0.01 x the aux load-balance loss of each MoE layer,
+        # which the first Adam steps raise as the router concentrates on the
+        # batches it sees; the language-model objective is the cross-entropy
+        require(first_ce_again < parts[0][0], f"{phase}: training did not lower the first "
+                                              f"batch's cross-entropy: {parts[0][0]} -> "
+                                              f"{first_ce_again}")
+    else:
+        require(first_again < losses[0], f"{phase}: training did not lower the first batch's "
+                                         f"loss: {losses[0]} -> {first_again}")
     require(residual > 0, f"{phase}: the error-feedback residual is zero")
     # the working copy is the plain version of the master's: the int8 round
     # trip of each page-class weight, a bf16 cast of the rest, bit for bit
@@ -1355,9 +1575,46 @@ def run_autograd_guard(torch):
                                       else type(bare.grad_fn).__name__})
 
 
+@contextlib.contextmanager
+def moe_routes(torch, replay=None):
+    """Record the experts each call of the MoE router takes (``moe.top_k``);
+    or, given the record of an earlier run of the same program, make each
+    call take the recorded experts, in call order, with this run's own
+    probabilities at them.  The record counts the assignments where this run
+    alone would have taken another expert or order, and the largest distance
+    of its probabilities from the recorded run's.  Card and CPU round bf16
+    differently, and a near-tie of two experts can route a token elsewhere;
+    the reference phase holds the rest of the model to the CPU's on the CPU's
+    routing, and the router's probabilities within PROB_TOL."""
+    from repro_torch.models import moe
+
+    real = moe.top_k
+    rec = {"idx": [], "probs": [], "differs": 0, "prob_dist": 0.0}
+
+    def top_k(probs, k):
+        vals, idx = real(probs, k)
+        rec["idx"].append(idx.cpu())
+        rec["probs"].append(probs.detach().cpu())
+        if replay is None:
+            return vals, idx
+        i = len(rec["idx"]) - 1
+        want = replay["idx"][i].to(idx.device)
+        rec["differs"] += int((idx != want).sum())
+        rec["prob_dist"] = max(rec["prob_dist"],
+                               float((rec["probs"][i] - replay["probs"][i]).abs().max()))
+        return probs.gather(-1, want), want
+
+    moe.top_k = top_k
+    try:
+        yield rec
+    finally:
+        moe.top_k = real
+
+
 def run_reference(torch):
     """The reduced model, same weights and prompt, on the card (kernels) and on
-    the CPU (plain versions): prefill logits and 4 decode steps."""
+    the CPU (plain versions): prefill logits and 4 decode steps; the MoE
+    family routed on the card as on the CPU (``moe_routes``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import movement as mv
     from repro_torch.launch import steps
@@ -1366,28 +1623,41 @@ def run_reference(torch):
     from repro_torch.models import nn
 
     tol = 8e-2  # bf16 compute on both sides, rounded at different places
-    worst = {}
-    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH):
+    worst, routing = {}, {}
+    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH, MOE_ARCH, "dbrx-132b"):
         cfg = get_config(arch).reduced()
         master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                                 torch.device("cpu"))
-        prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
-        outs = {}
+        # MLA attends through nn.attention at prefill, which takes a prompt
+        # the attention chunk (32) divides, as JAX's does
+        n = 64 if cfg.attn_kind == "mla" else 40
+        prompt = torch.randint(0, cfg.vocab_size, (2, n), generator=torch.Generator().manual_seed(1))
+        outs, record = {}, None
         for name in ("cpu", "cuda"):
             dev = torch.device(name)
             params = mv.working_copy(nn.tree_map(lambda t: t.to(dev), master), mv.DAEMON_DEFAULT)
-            logits, cache = steps.make_prefill_step(cfg)(params, {"tokens": prompt.to(dev)})
-            cache = _grow_cache(cfg, cache, 44)
-            seq = [logits.cpu()]
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            for i in range(4):
-                tok, lg, cache = steps.make_decode_step(cfg)(params, cache, tok, 40 + i)
-                seq.append(lg.cpu())
+            with moe_routes(torch, replay=record) as record:
+                logits, cache = steps.make_prefill_step(cfg)(params, {"tokens": prompt.to(dev)})
+                cache = _grow_cache(cfg, cache, n + 4)
+                seq = [logits.cpu()]
+                # the CPU's greedy tokens on both sides
+                feed = [torch.argmax(lg, -1).to(torch.int32).to(dev) for lg in outs.get("cpu", [])]
+                tok = feed[0] if feed else torch.argmax(logits, -1).to(torch.int32)
+                for i in range(4):
+                    nxt, lg, cache = steps.make_decode_step(cfg)(params, cache, tok, n + i)
+                    seq.append(lg.cpu())
+                    tok = feed[i + 1] if feed else nxt
             outs[name] = seq
         worst[arch] = max(float((a - b).abs().max()) for a, b in zip(outs["cpu"], outs["cuda"]))
         require(worst[arch] <= tol, f"{arch} reduced: card vs CPU logits differ by {worst[arch]}")
-    emit("reference", max_logit_diff_card_vs_cpu=worst, tol=tol)
-    for arch in (ARCH, HYBRID_ARCH, SSM_ARCH):
+        if record["idx"]:
+            routing[arch] = {k: record[k] for k in ("differs", "prob_dist")}
+            require(record["prob_dist"] <= PROB_TOL, f"{arch} reduced: the router's "
+                    f"probabilities differ by {record['prob_dist']} between card and CPU")
+    emit("reference", max_logit_diff_card_vs_cpu=worst, tol=tol,
+         moe_routing_card_vs_cpu=routing, prob_tol=PROB_TOL,
+         note="differs: assignments the card alone would route to another expert or order")
+    for arch in (ARCH, HYBRID_ARCH, SSM_ARCH, MOE_ARCH):
         run_reference_train(torch, arch)
 
 
@@ -1412,7 +1682,7 @@ def run_reference_train(torch, arch):
                                     seed=SEED))
     batches = [pipe.batch_at(i) for i in range(3)]
     pipe.close()
-    losses, residual = {}, {}
+    losses, residual, record = {}, {}, None
     for name in ("cpu", "cuda"):
         dev = torch.device(name)
         # a copy each: the step updates the master in place
@@ -1421,17 +1691,22 @@ def run_reference_train(torch, arch):
         step = steps.make_train_step(cfg, total_steps=3, movement="daemon",
                                      movement_cfg=mv.DAEMON_AGGRESSIVE)
         losses[name] = []
-        for b in batches:
-            params, state, m = step(params, state,
-                                    {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
-            losses[name].append(float(m["loss"]))
+        with moe_routes(torch, replay=record) as record:
+            for b in batches:
+                params, state, m = step(params, state,
+                                        {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+                losses[name].append(float(m["loss"]))
         residual[name] = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     require(rel <= LOSS_RTOL, f"reduced {arch} training: card vs CPU losses differ by {rel} "
                               f"(relative): {losses}")
     require(residual["cuda"] > 0, f"reduced {arch} training: the residual is zero on the card")
+    routing = {k: record[k] for k in ("differs", "prob_dist")} if record["idx"] else None
+    require(routing is None or routing["prob_dist"] <= PROB_TOL,
+            f"reduced {arch} training: the router's probabilities differ by {routing}")
     emit("reference", part=f"3 DAEMON_AGGRESSIVE train steps, reduced {arch}", losses=losses,
-         max_relative_loss_diff_card_vs_cpu=rel, tol=LOSS_RTOL, residual_abs_sum=residual)
+         max_relative_loss_diff_card_vs_cpu=rel, tol=LOSS_RTOL, residual_abs_sum=residual,
+         moe_routing_card_vs_cpu=routing)
 
 
 def main() -> int:
@@ -1466,7 +1741,9 @@ def main() -> int:
          libraries=[runtime.library_path(n).name for n in runtime.SOURCES])
 
     cfg, ssm_cfg, hybrid_cfg = get_config(ARCH), get_config(SSM_ARCH), get_config(HYBRID_ARCH)
+    moe_cfg = get_config(MOE_ARCH)
     k1, k2 = check_block_quant(torch, cfg)
+    bq_moe = check_block_quant_moe(torch, moe_cfg)
     k3 = check_flash_attention(torch, cfg)
     torch.cuda.empty_cache()
     k4 = check_mamba_scan(torch, ssm_cfg)
@@ -1488,11 +1765,20 @@ def main() -> int:
                                            "mamba_scan.forward": 0})
     free_memory(torch)
     per_phase["profile_hybrid"] = run_hybrid_profile(torch, runtime, hybrid_cfg)
+    none = {k: 0 for k in ("block_quant.quantize", "block_quant.dequantize",
+                           "flash_attention.forward", "mamba_scan.forward")}
+    per_phase["serve_moe"] = run_serve(torch, runtime, "serve_moe", MOE_ARCH, none)
+    free_memory(torch)
+    per_phase["int8_copy_moe"], per_phase["profile_moe"] = run_int8_copy_moe(torch, runtime,
+                                                                             moe_cfg)
     per_phase["train_step"] = run_train_step(torch, runtime, cfg, "train_step", (11, 7))
     per_phase["train_hybrid"] = run_train_step(torch, runtime, hybrid_cfg, "train_hybrid", (16, 4))
     per_phase["train_ssm"] = run_train_step(
         torch, runtime, dataclasses.replace(ssm_cfg, num_layers=SSM_TRAIN_LAYERS), "train_ssm",
         (9, 3))
+    per_phase["train_moe"] = run_train_step(
+        torch, runtime, dataclasses.replace(moe_cfg, num_layers=MOE_TRAIN_LAYERS), "train_moe",
+        (23, 15))
     per_phase["collectives"] = run_collectives(torch, runtime, cfg)
     run_checkpoint(torch, cfg)
     per_phase["train"] = run_train(torch, runtime)
@@ -1518,8 +1804,12 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "train_step_ms": k1["train_step_ms"], "train_step_plain_ms": k1["train_step_plain_ms"],
          "train_step_bound_ms": k1["train_step_bound_ms"],
+         "deepseek_page_class_ms": bq_moe["k1_ms"],
+         "deepseek_page_class_bound_ms": bq_moe["k1_bound_ms"],
          "per": "sum over the 7 stacked danube weights, f32 in; train_step_*: over a "
-                "training step's 18 launches, the 11 folded gradients and the 7 weights"},
+                "training step's 18 launches, the 11 folded gradients and the 7 weights; "
+                "deepseek_page_class_*: over deepseek-v2-lite's 15 page-class weights at "
+                "full depth, f32 in (plain times on the kernels.block_quant_moe lines)"},
         {"name": "block_quant.dequantize (K2)", "route": "cuda",
          "source": f"{src}/block_quant/csrc/block_quant.cu",
          "replaces": "src/repro/kernels/block_quant/block_quant.py:37",
@@ -1530,8 +1820,12 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "train_step_ms": k2["train_step_ms"], "train_step_plain_ms": k2["train_step_plain_ms"],
          "train_step_bound_ms": k2["train_step_bound_ms"],
+         "deepseek_page_class_ms": bq_moe["k2_ms"],
+         "deepseek_page_class_bound_ms": bq_moe["k2_bound_ms"],
          "per": "sum over the 7 stacked danube weights, bf16 out; train_step_*: over a "
-                "training step's 18 launches, f32 out for the 11 folded gradients"},
+                "training step's 18 launches, f32 out for the 11 folded gradients; "
+                "deepseek_page_class_*: over deepseek-v2-lite's 15 page-class weights, "
+                "bf16 out"},
         {"name": "flash_attention.forward (K3)", "route": "cuda",
          "source": f"{src}/flash_attention/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:29",

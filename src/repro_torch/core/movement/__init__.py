@@ -6,6 +6,7 @@ from repro_torch.core.movement.collectives import (
 from repro_torch.core.movement.daemon_step import (
     DaemonState,
     init_state,
+    init_working_copy,
     make_daemon_train_step,
     working_copy,
 )
@@ -19,7 +20,8 @@ from repro_torch.core.movement.engine import (
 
 __all__ = [
     "chunked_all_gather", "compressed_all_gather", "compressed_grad_sync",
-    "DaemonState", "init_state", "make_daemon_train_step", "working_copy",
+    "DaemonState", "init_state", "init_working_copy", "make_daemon_train_step",
+    "working_copy",
     "BASELINE", "DAEMON_AGGRESSIVE", "DAEMON_DEFAULT", "MovementConfig",
     "SelectionUnit",
 ]

@@ -49,17 +49,28 @@ def is_foldable(shape: tuple[int, ...]) -> bool:
     return len(shape) >= 2 and shape[-1] % 128 == 0
 
 
+def _copy_leaf(p: torch.Tensor, cfg_mv: MovementConfig) -> torch.Tensor:
+    if cfg_mv.expert_weights == "int8" and is_page_class(tuple(p.shape)):
+        # page-class tensors (stacked expert/layer weights): int8 wire
+        q, s = bq.quantize(p.to(torch.float32))
+        return bq.dequantize(q, s, torch.bfloat16)
+    return p.to(torch.bfloat16)
+
+
 def working_copy(master: Any, cfg_mv: MovementConfig) -> Any:
     """bf16 (or int8-roundtripped) working parameters from the f32 master."""
+    return nn.tree_map(lambda p: _copy_leaf(p, cfg_mv), master)
 
-    def one(p: torch.Tensor) -> torch.Tensor:
-        if cfg_mv.expert_weights == "int8" and is_page_class(tuple(p.shape)):
-            # page-class tensors (stacked expert/layer weights): int8 wire
-            q, s = bq.quantize(p.to(torch.float32))
-            return bq.dequantize(q, s, torch.bfloat16)
-        return p.to(torch.bfloat16)
 
-    return nn.tree_map(one, master)
+def init_working_copy(specs: Any, generator: torch.Generator, device: torch.device,
+                      cfg_mv: MovementConfig) -> Any:
+    """``working_copy(nn.init_params(specs, generator, device), cfg_mv)``,
+    equal to it bit for bit, without the f32 master: each leaf is drawn as
+    ``init_params`` draws it, in the same order from the same generator,
+    copied, and released.  For serving, which never reads the master again:
+    the peak is the working copy plus the largest f32 leaf and its int8 codes,
+    not the master beside the copy."""
+    return nn.init_params(specs, generator, device, then=lambda p: _copy_leaf(p, cfg_mv))
 
 
 def init_state(master: Any) -> DaemonState:

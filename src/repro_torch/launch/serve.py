@@ -7,6 +7,8 @@ decode on one device, with the DaeMon working copy of the weights.
         --batch 2 --prompt-len 8192 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --batch 2 --prompt-len 8192 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --batch 2 --prompt-len 8192 --gen 16
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -48,9 +50,14 @@ def serve(
         cfg = cfg.reduced()
     specs = M.model_specs(cfg)
 
-    master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev)
-    mv_cfg = mv.DAEMON_DEFAULT if movement == "daemon" else mv.BASELINE
-    params = mv.working_copy(master, mv_cfg) if movement == "daemon" else master
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if movement == "daemon":
+        # serving never reads the f32 master: each leaf is copied as it is
+        # drawn, so the master never sits beside the copy (deepseek-v2-lite's
+        # would not fit beside it on one 80 GB card)
+        params = mv.init_working_copy(specs, gen, dev, mv.DAEMON_DEFAULT)
+    else:
+        params = nn.init_params(specs, gen, dev)
 
     rng = np.random.default_rng(seed)
     total_len = prompt_len + gen_tokens

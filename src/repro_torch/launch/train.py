@@ -7,8 +7,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --steps 20 --batch 4 --seq 32 --movement daemon --device cpu --ckpt-dir /tmp/ck
 
-The dense, SSM (falcon-mamba: the chunked scan, never kernel K4) and hybrid
-(zamba2) families train; the others raise with their ROADMAP item.
+The dense, MoE (deepseek-v2-lite with MLA, dbrx), SSM (falcon-mamba: the
+chunked scan, never kernel K4) and hybrid (zamba2) families train; the others
+raise with their ROADMAP item.
 
 Wires together: config -> data pipeline -> (baseline | daemon) train step ->
 async checkpointing -> supervisor (heartbeat + straggler policy) ->

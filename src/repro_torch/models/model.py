@@ -1,5 +1,5 @@
-"""Model API of the port (port of ``repro.models.model``): the dense, SSM
-and hybrid families.
+"""Model API of the port (port of ``repro.models.model``): the dense, MoE,
+SSM and hybrid families.
 
     model_specs(cfg)            -> ParamSpec tree (single source of truth)
     loss_fn(cfg, params, batch) -> (loss, metrics)      [train]
@@ -26,14 +26,13 @@ LOSS_CHUNK = 256
 COMPUTE_DTYPE = torch.bfloat16
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 13 (MoE + MLA)",
     "vlm": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
     "audio": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
@@ -64,9 +63,15 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Every parameter of a dense, SSM or hybrid model is active, so ``active_only``
-    changes nothing until the MoE family is ported."""
-    return nn.param_count(model_specs(cfg))
+    """All parameters, or with ``active_only`` those a token passes: of each
+    MoE layer's routed experts only ``top_k``."""
+    total = nn.param_count(model_specs(cfg))
+    if active_only and cfg.family == "moe":
+        moe_layers = cfg.num_layers - cfg.first_dense_layers
+        routed = moe_layers * cfg.num_experts * 3 * cfg.d_model * cfg.moe_d_ff
+        active = moe_layers * cfg.top_k * 3 * cfg.d_model * cfg.moe_d_ff
+        total = total - routed + active
+    return total
 
 
 # --------------------------------------------------------------------------

@@ -75,13 +75,20 @@ def stack_specs(specs: PyTree, n: int) -> PyTree:
 
 
 def init_params(specs: PyTree, generator: torch.Generator, device: torch.device,
-                dtype: torch.dtype = torch.float32) -> PyTree:
+                dtype: torch.dtype = torch.float32,
+                then: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> PyTree:
     """Materialize parameters: normal(0, scale / sqrt(fan_in)), ones/zeros, or
     the SSM inits (``s4d``: log(1..N) along the last dim; ``dt_bias``: the
     softplus inverse of dt ~ U[1e-3, 1e-1]).  ``generator`` must live on
-    ``device``."""
+    ``device``.  ``then``, if given, maps each leaf as soon as it is drawn
+    (the drawn leaf is released after it), so the tree of drawn leaves never
+    exists whole."""
 
     def one(s: ParamSpec) -> torch.Tensor:
+        x = draw(s)
+        return x if then is None else then(x)
+
+    def draw(s: ParamSpec) -> torch.Tensor:
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dtype, device=device)
         if s.init == "ones":

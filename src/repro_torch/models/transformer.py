@@ -1,5 +1,6 @@
-"""Decoder-only transformer trunk, dense GQA family (port of the dense
-branches of ``repro.models.transformer``: minicpm, danube, stablelm, qwen3).
+"""Decoder-only transformer trunk (port of ``repro.models.transformer``): the
+dense GQA archs (minicpm, danube, stablelm, qwen3) and the MoE archs
+(deepseek-v2-lite with MLA, dbrx) as segments.
 
 Layers form *segments* of uniform structure whose parameters are stacked on a
 leading ``layers`` axis, as in the JAX package; where JAX scans a segment, the
@@ -9,7 +10,10 @@ JAX does (the kernel, like the Pallas one, is forward-only), with each layer
 rematerialised in backward per ``cfg.remat``; decode attends over the (ring)
 KV cache with plain products.  The decode step writes the new key and value
 into the cache buffers in place (JAX returns updated copies; the serving loop
-donates them).
+donates them).  MLA (q/k heads of 192, v heads of 128, which the flash kernel
+does not take) attends through ``nn.attention`` at prefill too, as JAX does,
+and decodes in the compressed latent with its up-projections absorbed; its
+attention runs in a named range, ``mla.attention``, for the profile.
 """
 from __future__ import annotations
 
@@ -19,15 +23,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import nn
 from repro_torch.models.nn import ParamSpec, logical_constraint
 
 PyTree = Any
-
-_MOE_MLA = "MoE and MLA are not ported yet (ROADMAP Queue 1 item 13)"
 
 
 # --------------------------------------------------------------------------
@@ -46,7 +50,11 @@ def segments(cfg: ModelConfig) -> List[Segment]:
     if cfg.family == "dense":
         return [Segment("seg0", cfg.num_layers, False)]
     if cfg.family == "moe":
-        raise NotImplementedError(_MOE_MLA)
+        segs = []
+        if cfg.first_dense_layers:
+            segs.append(Segment("seg0", cfg.first_dense_layers, False))
+        segs.append(Segment(f"seg{len(segs)}", cfg.num_layers - cfg.first_dense_layers, True))
+        return segs
     if cfg.family == "vlm":
         raise NotImplementedError("the VLM family is not ported yet (ROADMAP Queue 1 item 14)")
     raise ValueError(f"transformer trunk does not build family {cfg.family!r}")
@@ -58,9 +66,18 @@ def segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(_MOE_MLA)
     d = cfg.d_model
+    if cfg.attn_kind == "mla":
+        h = cfg.num_heads
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wq": ParamSpec((d, h * qk), ("embed", "heads")),
+            "w_dkv": ParamSpec((d, cfg.kv_lora_rank + cfg.qk_rope_dim), ("embed", "lora")),
+            "kv_norm": ParamSpec((cfg.kv_lora_rank,), (None,), "ones"),
+            "w_uk": ParamSpec((cfg.kv_lora_rank, h * cfg.qk_nope_dim), ("lora", "heads")),
+            "w_uv": ParamSpec((cfg.kv_lora_rank, h * cfg.v_head_dim), ("lora", "heads")),
+            "wo": ParamSpec((h * cfg.v_head_dim, d), ("heads", "embed")),
+        }
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": ParamSpec((d, h * dh), ("embed", "heads")),
@@ -84,13 +101,11 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def block_specs(cfg: ModelConfig, is_moe: bool) -> Dict[str, Any]:
-    if is_moe:
-        raise NotImplementedError(_MOE_MLA)
     return {
         "ln1": ParamSpec((cfg.d_model,), (None,), "ones"),
         "attn": attn_specs(cfg),
         "ln2": ParamSpec((cfg.d_model,), (None,), "ones"),
-        "ffn": mlp_specs(cfg),
+        "ffn": moe_lib.moe_specs(cfg) if is_moe else mlp_specs(cfg),
     }
 
 
@@ -210,6 +225,79 @@ def _decode_attn_abs(cfg, q, k, v, kv_positions, valid):
     return o.reshape(b, h, -1)[:, None].to(q.dtype)
 
 
+# ---------------------------- MLA (deepseek) -------------------------------
+
+
+def mla_project_q(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    q = torch.matmul(x, p["wq"].to(x.dtype))
+    q = q.reshape(b, s, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, nn.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_compress_kv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """-> (ckv (B, S, R) normed, k_rope (B, S, rope) rotated): what the cache holds."""
+    ckv_rope = torch.matmul(x, p["w_dkv"].to(x.dtype))
+    ckv, k_rope = torch.split(ckv_rope, [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    ckv = nn.rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    k_rope = nn.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def mla_attn_forward(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor, *,
+                     make_cache: bool = False):
+    """Prefill/train MLA: the compressed kv expanded to per-head K (192 =
+    nope 128 + the rope key shared across heads) and V (128), through
+    ``nn.attention`` (scale 1/sqrt(192), from q's last dim)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = mla_project_q(cfg, p, x, positions)
+    ckv, k_rope = mla_compress_kv(cfg, p, x, positions)
+    k_nope = torch.matmul(ckv, p["w_uk"].to(x.dtype)).reshape(b, s, h, cfg.qk_nope_dim)
+    v = torch.matmul(ckv, p["w_uv"].to(x.dtype)).reshape(b, s, h, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    with record_function("mla.attention"):
+        o = nn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    out = torch.matmul(o.reshape(b, s, -1), p["wo"].to(x.dtype))
+    cache = {"ckv": ckv, "krope": k_rope} if make_cache else None
+    return out, cache
+
+
+def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int):
+    """Absorbed MLA decode: attention runs in the compressed kv_lora space,
+    in f32, over the (B, S, R + rope) cache; ``w_uk`` is folded into q and
+    ``w_uv`` applied after the softmax.  Writes the new ``ckv``/``krope`` row
+    into ``cache`` in place; keys past ``pos`` are masked."""
+    b = x.shape[0]
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    positions = torch.tensor([pos], device=x.device)
+    q_nope, q_rope = mla_project_q(cfg, p, x, positions)  # (B, 1, H, *)
+    ckv_new, krope_new = mla_compress_kv(cfg, p, x, positions)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, pos] = ckv_new[:, 0]
+    krope[:, pos] = krope_new[:, 0]
+
+    w_uk = p["w_uk"].reshape(r, h, cfg.qk_nope_dim).to(x.dtype)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # absorb the k up-projection
+    with record_function("mla.attention"):
+        ckv32 = ckv.to(torch.float32)
+        scores = torch.einsum("bhr,bsr->bhs", q_abs.to(torch.float32), ckv32)
+        scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32),
+                                       krope.to(torch.float32))
+        scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+        kv_pos = torch.arange(ckv.shape[1], device=x.device)
+        scores = scores.masked_fill((kv_pos > pos)[None, None, :], nn.NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhs,bsr->bhr", probs, ckv32).to(x.dtype)
+    w_uv = p["w_uv"].reshape(r, h, cfg.v_head_dim).to(x.dtype)
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv)  # absorb the v up-projection
+    out = torch.matmul(o.reshape(b, -1), p["wo"].to(x.dtype))[:, None, :]
+    return out, {"ckv": ckv, "krope": krope}
+
+
 # --------------------------------------------------------------------------
 # blocks
 # --------------------------------------------------------------------------
@@ -226,28 +314,36 @@ def apply_block(
     causal: bool = True,
     training: bool = False,
 ):
-    if is_moe or cfg.attn_kind == "mla":
-        raise NotImplementedError(_MOE_MLA)
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = gqa_attn_forward(cfg, p["attn"], h, positions, make_cache=make_cache,
-                                causal=causal, training=training)
+    if cfg.attn_kind == "mla":
+        a, cache = mla_attn_forward(cfg, p["attn"], h, positions, make_cache=make_cache)
+    else:
+        a, cache = gqa_attn_forward(cfg, p["attn"], h, positions, make_cache=make_cache,
+                                    causal=causal, training=training)
     x = x + a
     h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = nn.swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if is_moe:
+        f, aux = moe_lib.apply_moe(p["ffn"], h, cfg)
+    else:
+        f = nn.swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x + f
     x = logical_constraint(x, "act_batch", None, None)
     return x, cache, aux
 
 
 def apply_block_decode(cfg: ModelConfig, p, x, cache, pos: int, *, is_moe: bool):
-    if is_moe or cfg.attn_kind == "mla":
-        raise NotImplementedError(_MOE_MLA)
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = gqa_attn_decode(cfg, p["attn"], h, cache, pos)
+    if cfg.attn_kind == "mla":
+        a, new_cache = mla_attn_decode(cfg, p["attn"], h, cache, pos)
+    else:
+        a, new_cache = gqa_attn_decode(cfg, p["attn"], h, cache, pos)
     x = x + a
     h = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = nn.swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
+    if is_moe:
+        f, _ = moe_lib.apply_moe(p["ffn"], h, cfg)
+    else:
+        f = nn.swiglu(h, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"])
     return x + f, new_cache
 
 
@@ -300,7 +396,13 @@ def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     w = _cache_window(cfg, seq_len)
     for seg in segments(cfg):
         if cfg.attn_kind == "mla":
-            raise NotImplementedError(_MOE_MLA)
+            out[seg.name] = {
+                "ckv": ParamSpec((seg.n_layers, batch, seq_len, cfg.kv_lora_rank),
+                                 ("layers", "act_batch", "kv_seq", "kv_dh")),
+                "krope": ParamSpec((seg.n_layers, batch, seq_len, cfg.qk_rope_dim),
+                                   ("layers", "act_batch", "kv_seq", None)),
+            }
+            continue
         kvshape = (seg.n_layers, batch, w, cfg.num_kv_heads, cfg.head_dim)
         axes = ("layers", "act_batch", "kv_seq", None, "kv_dh")
         out[seg.name] = {"k": ParamSpec(kvshape, axes), "v": ParamSpec(kvshape, axes)}

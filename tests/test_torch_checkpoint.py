@@ -263,6 +263,46 @@ def test_hybrid_jax_save_restores_in_port(tmp_path, zstd):
     assert isinstance(state, mv.DaemonState) and int(state.adam.step) == int(tree_j[1].adam.step)
 
 
+MOE = "deepseek-v2-lite-16b"
+
+
+def test_moe_port_save_restores_in_jax(tmp_path, zstd):
+    """Reduced deepseek's (params, DaemonState), saved by the port and
+    restored by JAX: 4-D expert stacks (L, E, d, f) among the leaves, the
+    bf16 working copy stored as numpy ``V2`` with manifest dtype "bfloat16",
+    the same manifest and bytes."""
+    tree_j = _jax_state(seed=6, arch=MOE)
+    n_leaves = len(jax.tree.leaves(tree_j[0]))
+    CheckpointManager(tmp_path).save(3, _port_state(tree_j), {"step": 3})
+    manifest = json.loads((tmp_path / "step_00000003" / "manifest.json").read_text())
+    assert len(manifest["arrays"]) == 5 * n_leaves + 1
+    for tree in ("0", "1/.master", "1/.adam/.m"):
+        assert len(manifest["arrays"][f"{tree}/seg1/ffn/w_gate"]["shape"]) == 4
+    assert manifest["arrays"]["0/seg1/ffn/w_up"]["dtype"] == "bfloat16"
+    restored, extra = jax_ckpt.CheckpointManager(tmp_path).restore(3, tree_j)
+    assert extra == {"step": 3}
+    got, want = jax_ckpt._flatten(restored), jax_ckpt._flatten(tree_j)
+    assert list(got) == list(want) == list(manifest["arrays"])
+    for key in want:
+        assert got[key].shape == want[key].shape and got[key].tobytes() == want[key].tobytes(), key
+
+
+def test_moe_jax_save_restores_in_port(tmp_path, zstd):
+    """Reduced deepseek's DaeMon state saved by JAX and restored by the port
+    bit for bit, the bf16 working copy as bf16."""
+    tree_j = _jax_state(seed=7, arch=MOE)
+    jax_ckpt.CheckpointManager(tmp_path).save(11, tree_j, {"step": 11, "arch": MOE})
+    (params, state), extra = CheckpointManager(tmp_path).restore(None, _port_like(MOE))
+    assert extra == {"step": 11, "arch": MOE}
+    ours, theirs = dict(ckpt._items((params, state))), jax_ckpt._flatten(tree_j)
+    assert list(ours) == list(theirs)
+    for key, a in theirs.items():
+        assert _bits(ours[key]) == _bits(a), key
+    assert all(t.dtype == torch.bfloat16 for t in nn.tree_leaves(params))
+    assert params["seg1"]["ffn"]["w_down"].dim() == 4
+    assert isinstance(state, mv.DaemonState) and int(state.adam.step) == int(tree_j[1].adam.step)
+
+
 def test_uncompressed_serialisation_round_trips_bf16():
     """The payload the card phase round-trips without zstandard."""
     tree = _port_state(_jax_state(seed=3))

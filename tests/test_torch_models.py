@@ -23,7 +23,7 @@ from repro_torch.models import nn
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["minicpm-2b", "h2o-danube-1.8b", "stablelm-12b", "qwen3-14b"]
-PORTED = DENSE + ["falcon-mamba-7b", "zamba2-1.2b"]
+PORTED = DENSE + ["falcon-mamba-7b", "zamba2-1.2b", "deepseek-v2-lite-16b", "dbrx-132b"]
 
 
 def _flat(tree, prefix=()):
@@ -94,15 +94,23 @@ def test_model_specs_match_jax(arch):
 def test_param_count_matches_jax(arch):
     cfg = configs.get_config(arch)
     expected = JM.param_count(jax_configs.get_config(arch))
-    assert M.param_count(cfg) == cfg.param_count() == cfg.active_param_count() == expected
+    active = JM.param_count(jax_configs.get_config(arch), active_only=True)
+    assert M.param_count(cfg) == cfg.param_count() == expected
+    assert M.param_count(cfg, active_only=True) == cfg.active_param_count() == active
+    assert (active < expected) == (cfg.family == "moe")
 
 
 def test_danube_param_count():
     assert configs.get_config("h2o-danube-1.8b").param_count() == 1_831_201_280
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "internvl2-76b", "whisper-base",
-                                  "dbrx-132b"])
+def test_deepseek_param_count():
+    cfg = configs.get_config("deepseek-v2-lite-16b")
+    assert cfg.param_count() == 15_706_484_224
+    assert cfg.active_param_count() == 2_661_150_208
+
+
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-base"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_config(arch).param_count()
