@@ -14,7 +14,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               with the HGMMA count of its tensor-core kernels' SASS and
               scaled_dot_product_attention's time beside it, K4 mamba_scan
               with no spills and its shares of the bound and of the SFU's
-              exp floor); K1/K2 also at deepseek-v2-lite's 15 page-class
+              exp floor); K3 also at whisper's three serving shapes and
+              internvl2's (head_dim 128; its ptxas registers and spill
+              recorded); K1/K2 also at deepseek-v2-lite's 15 page-class
               shapes at full depth, three of them 4.80e9-element expert
               stacks held on row slices across element 2^31;
   4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
@@ -46,47 +48,63 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               MLA attention's, the expert products', the routing and
               dispatch's and the rest's shares of prefill, decode's launches
               a token and idle share;
- 13. train_step the DaeMon training step of h2o-danube-1.8b at full width and
+ 13. serve_audio serve("whisper-base", reduced=False, batch=16,
+              prompt_len=1500, gen_tokens=16) at full width and depth (1500
+              frames, the encoder's 30-second window): the flash kernel must
+              launch 18 times (encoder, decoder and cross-attention, once a
+              layer each), K1/K2/K4 never;
+ 14. profile_audio a second whisper prefill and 4 decode steps under
+              torch.profiler: device busy share, launches, device time by
+              kernel and op;
+ 15. serve_vlm  the same serving path (serve_config) for internvl2-76b at full
+              width on its first 27 of 80 layers, batch 2, 256 zero patches +
+              an 8192-token prompt, 16 tokens: the flash kernel once a layer
+              (head_dim 128), the peak under 75 GB;
+ 16. profile_vlm as 14, for that internvl2;
+ 17. train_step the DaeMon training step of h2o-danube-1.8b at full width and
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
               K2 must launch 18 times a step (11 folded gradients, 7 working-
               copy weights), K3 and K4 never; falling losses, a live residual,
               a working copy equal to the plain int8 round trip, and the fold
               of one more step's gradients equal to the plain fold;
- 14. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
+ 18. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
               20 a step (16 folded gradients, 4 working-copy weights);
- 15. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
+ 19. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
               of 64 layers (the whole model's training state, ~131 GB, does
               not fit the card): K1 = K2 = 12 a step (9 + 3), the chunked
               scan in training, K4 never;
- 16. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
+ 20. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
               first 4 of 27 layers (the dense layer and 3 MoE layers; the
               whole model's state, ~314 GB, does not fit): K1 = K2 = 38 a
               step (23 + 15), the first batch's cross-entropy lowered;
- 17. collectives  the DaeMon collectives on one process group of world size 1
+ 21. train_audio the same for whisper-base at full width and depth, batch 16
+              x 1024 with zero frames: K1 = K2 = 42 a step (24 + 18);
+ 22. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
               chunked all-gathers of its 7 stacked weights; K1/K2 must launch
               inside them, and the results must equal the same calls on CPU
               copies (gloo, plain versions) bit for bit; timed, with the wire
               bytes int8 against f32;
- 18. checkpoint  save_async's host snapshot of full-width danube's (params,
+ 23. checkpoint  save_async's host snapshot of full-width danube's (params,
               DaemonState), timed; reduced danube's state after 2 card train
               steps serialised and restored onto the card bit for bit; save
               without zstandard raising before it writes;
- 19. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+ 24. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 20. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 25. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 21. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
-              deepseek, dbrx) on the card against the plain path on the CPU,
-              and 3 DAEMON_AGGRESSIVE train steps each of reduced danube,
-              zamba2, falcon-mamba and deepseek from the same state and
-              batches; the MoE routed on the card as on the CPU;
+ 26. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
+              deepseek, dbrx, whisper, internvl2) on the card against the
+              plain path on the CPU, and 3 DAEMON_AGGRESSIVE train steps each
+              of reduced danube, zamba2, falcon-mamba, deepseek, whisper and
+              internvl2 from the same state and batches; the MoE routed on
+              the card as on the CPU;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-17, 19) and read just after; launches made to compare a
+main-path phase (4-22, 24) and read just after; launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -127,6 +145,20 @@ SSM_TRAIN_LAYERS = 8  # falcon's training phase: its first 8 of 64 layers
 # deepseek's training phase: its first 4 of 27 layers (the dense layer and 3
 # MoE layers); the whole model's training state, ~314 GB, does not fit
 MOE_TRAIN_LAYERS = 4
+AUDIO_ARCH = "whisper-base"
+VLM_ARCH = "internvl2-76b"
+# whisper: B = 16 at 1500 frames, its encoder's 30-second window; the
+# decoder's prompt is as long (JAX's serve ties frames to the prompt), and
+# training takes 1024 (nn.attention's chunk divides it)
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_TRAIN_SEQ = 16, 1500, 1024
+# internvl2-76b served on its first 27 of 80 layers: the largest depth whose
+# peak stays under VLM_PEAK_GB.  The peak comes as the working copy is
+# drawn, at ffn/w_down: its f32 stack and its bf16 copy beside the bf16
+# embed, attention, w_gate and w_up stacks, 2.10 + 2.651 GB a layer: 73.7
+# GB at 27, 76.3 at 28 (prefill's own peak is lower: the copy, the cache
+# and the FFN's (2, 8448, 28672) activations)
+VLM_SERVE_LAYERS = 27
+VLM_PEAK_GB = 75.0
 BATCH, PROMPT, GEN = 2, 8192, 16
 TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
 TRAIN_STEPS = 4  # timed, then one more under the profiler
@@ -499,10 +531,12 @@ def sass_counts(lib: Path, opcode: str) -> dict:
 
 def check_flash_attention(torch, cfg):
     """K3 against the plain version on the same inputs, over ATTN_CASES, the
-    reduced danube's head_dim 16 and the serving shapes of danube and zamba2
-    (each also timed beside its bound and one SDPA call): f32 (CUDA cores)
-    at |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <= 1e-5 +
-    1e-2|ref|, one bf16 ulp."""
+    reduced danube's head_dim 16 and the serving shapes of danube, zamba2,
+    whisper (its encoder and cross-attention non-causal, its decoder causal,
+    B = 16 at 1500 frames) and internvl2 (256 patches + 8192 tokens, heads of
+    128), each also timed beside its bound and one SDPA call: f32 (CUDA
+    cores) at |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <=
+    1e-5 + 1e-2|ref|, one bf16 ulp."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -524,8 +558,12 @@ def check_flash_attention(torch, cfg):
     tc = {fn: n for fn, n in hgmma.items() if "wgmma" in fn}
     require(len(tc) == len(kernel.HEAD_DIMS) and all(tc.values()),
             f"K3: tensor-core instances without HGMMA: {tc}")
-    emit("kernels.flash_attention", hgmma_per_kernel=hgmma,
-         ptxas_per_kernel=ptxas_per_kernel(lib.with_suffix(".log").read_text()))
+    ptxas = ptxas_per_kernel(lib.with_suffix(".log").read_text())
+    emit("kernels.flash_attention", hgmma_per_kernel=hgmma, ptxas_per_kernel=ptxas)
+    # the head dims of this path's serving shapes: whisper's 64 and
+    # internvl2's 128 (whose spill is recorded, not refused: Queue 2 work)
+    wgmma_ptxas = {d: ptxas[f"flash_forward_wgmma_kernel<{d}>"] for d in (64, 128)}
+    emit("kernels.flash_attention", ptxas_wgmma_by_head_dim=wgmma_ptxas)
 
     worst_f32 = worst_bf16 = 0.0
     for case in ATTN_CASES + [reduced_attn_case()]:
@@ -563,12 +601,24 @@ def check_flash_attention(torch, cfg):
         window = arch_cfg.window if arch_cfg.attn_kind == "swa" else 0
         serving.append(((BATCH, PROMPT, PROMPT, arch_cfg.num_heads, arch_cfg.num_kv_heads,
                          arch_cfg.head_dim, True, window), arch_cfg.name, must_beat_library))
-    summary = None
+    # whisper's three attentions at prefill (the cross's K/V have all heads;
+    # its queries are the prompt, as long as the frames) and internvl2's
+    audio, vlm = get_config(AUDIO_ARCH), get_config(VLM_ARCH)
+    frames = (AUDIO_BATCH, AUDIO_PROMPT, AUDIO_PROMPT, audio.num_heads)
+    serving += [((*frames, audio.num_kv_heads, audio.head_dim, False, 0),
+                 f"{audio.name} encoder", False),
+                ((*frames, audio.num_kv_heads, audio.head_dim, True, 0),
+                 f"{audio.name} decoder", False),
+                ((*frames, audio.num_heads, audio.head_dim, False, 0),
+                 f"{audio.name} cross", False),
+                ((BATCH, vlm.num_prefix_tokens + PROMPT, vlm.num_prefix_tokens + PROMPT,
+                  vlm.num_heads, vlm.num_kv_heads, vlm.head_dim, True, 0), vlm.name, False)]
+    summary, others = None, []
     for shape, arch, must_beat_library in serving:
-        b, sq, skv, h, kvh, d, _, window = shape
+        b, sq, skv, h, kvh, d, causal, window = shape
         q, k, v = qkv(b, sq, skv, h, kvh, d, torch.float32)
-        out = kernel.forward(q, k, v, causal=True, window=window)
-        expect = ref.attention_ref(q, k, v, causal=True, window=window)
+        out = kernel.forward(q, k, v, causal=causal, window=window)
+        expect = ref.attention_ref(q, k, v, causal=causal, window=window)
         err32 = (out - expect).abs()
         excess = float((err32 - 2e-5 * expect.abs()).max())
         require(excess <= 2e-5, f"K3 f32 at {arch}'s serving shape: |err| exceeds 2e-5 + "
@@ -580,8 +630,8 @@ def check_flash_attention(torch, cfg):
         del q, k, v, out, expect, err32
 
         q, k, v = qkv(b, sq, skv, h, kvh, d, torch.bfloat16)
-        out = kernel.forward(q, k, v, causal=True, window=window)
-        expect = ref.attention_ref(q, k, v, causal=True, window=window)
+        out = kernel.forward(q, k, v, causal=causal, window=window)
+        expect = ref.attention_ref(q, k, v, causal=causal, window=window)
         diff = (out.float() - expect.float()).abs()
         err = float(diff.max())
         excess = float((diff - rtol * expect.float().abs()).max())
@@ -594,12 +644,14 @@ def check_flash_attention(torch, cfg):
         # yardstick only, never called by the port: one PyTorch call, same function
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if window:
-            qpos = torch.arange(PROMPT, device=dev)[:, None]
-            kpos = torch.arange(PROMPT, device=dev)[None, :]
+            qpos = torch.arange(sq, device=dev)[:, None]
+            kpos = torch.arange(skv, device=dev)[None, :]
             lib_kw = {"attn_mask": (kpos <= qpos) & (kpos > qpos - window)}
-        else:
+        elif causal:
             lib_kw = {"is_causal": True}
-        library = f"scaled_dot_product_attention({list(lib_kw)[0]})"
+        else:
+            lib_kw = {}
+        library = f"scaled_dot_product_attention({', '.join(lib_kw) or 'no mask'})"
         if kvh != h:
             lib_kw["enable_gqa"] = True
 
@@ -607,15 +659,16 @@ def check_flash_attention(torch, cfg):
             return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
 
         def k3():
-            return kernel.forward(q, k, v, causal=True, window=window)
+            return kernel.forward(q, k, v, causal=causal, window=window)
 
         lib_err = float((sdpa().transpose(1, 2).float() - expect.float()).abs().max())
         # kernel and library in turns (kernel, library, library, kernel)
         k3_a, lib_a, lib_b, k3_b = (time_ms(torch, fn) for fn in (k3, sdpa, sdpa, k3))
         ms, library_ms = min(k3_a, k3_b), min(lib_a, lib_b)
-        plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=True, window=window))
+        plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                            window=window))
 
-        flops = 4 * d * b * h * band_pairs(sq, skv, True, window)
+        flops = 4 * d * b * h * band_pairs(sq, skv, causal, window)
         n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kvh * d)  # q, o; k, v in bf16
         bound_ms = max(flops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if flops / BF16_FLOP_PER_S > n_bytes / HBM_BYTES_PER_S else "bytes"
@@ -630,13 +683,18 @@ def check_flash_attention(torch, cfg):
         if must_beat_library:
             require(ms < library_ms, f"K3 bf16 at {arch}'s serving shape: {ms} ms, not faster "
                                      f"than scaled_dot_product_attention's {library_ms} ms")
-        summary = summary or {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": library_ms,
-                              "share_of_bound": bound_ms / ms,
-                              "achieved_tflop_per_s": flops / ms / 1e9, "shape": list(shape)}
+        timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+                 "achieved_tflop_per_s": flops / ms / 1e9, "shape": list(shape)}
+        if summary is None:
+            summary = timed
+        else:
+            others.append({"arch": arch, "max_abs_err": err, **timed})
         del q, k, v, qt, kt, vt, out, expect, lib_kw
+        free_memory(torch)
     return {"max_abs_err": worst_bf16, "f32_max_abs_err": worst_f32,
-            "hgmma_instructions": sum(tc.values()), **summary}
+            "hgmma_instructions": sum(tc.values()), "other_shapes": others,
+            "wgmma_ptxas": wgmma_ptxas, **summary}
 
 
 def reduced_attn_case():
@@ -740,36 +798,88 @@ def check_mamba_scan(torch, cfg):
 
 
 # --------------------------------------------------------------------------
-# phases 4-13: the main paths and the reference check
+# phases 4-26: the main paths and the reference check
 # --------------------------------------------------------------------------
 
 
-def run_serve(torch, runtime, phase, arch, want):
-    """serve(arch) at full width and depth; each kernel in ``want`` must
-    launch as many times as it says, and the tokens must lie in the
-    vocabulary."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+def run_serve(torch, runtime, phase, cfg, want, batch=BATCH, prompt=PROMPT, peak_gb=None):
+    """serve_config(cfg) (serve(arch)'s body) with random weights; each kernel
+    in ``want`` must launch as many times as it says, the tokens must lie in
+    the vocabulary, and the peak stay under ``peak_gb`` if given."""
+    from repro_torch.launch.serve import serve_config
 
-    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_launches()
     t0 = time.perf_counter()
-    r = serve(arch, reduced=False, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
-              movement="daemon", seed=SEED)
+    r = serve_config(cfg, batch=batch, prompt_len=prompt, gen_tokens=GEN, movement="daemon",
+                     seed=SEED)
     wall = time.perf_counter() - t0
     launches = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch, prompt_len=prompt,
+         gen_tokens=GEN, prefill_s=r["prefill_s"], decode_s_per_token=r["decode_s_per_token"],
+         tokens_per_s=r["tokens_per_s"], wall_s=wall, peak_memory_gb=peak, launches=launches)
     for kernel, n in want.items():
         require(launches[kernel] == n, f"{phase}: {kernel} launched {launches[kernel]} times, "
                                        f"not {n}")
     toks = r["tokens"]
-    require(toks.shape == (BATCH, GEN) and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+    require(toks.shape == (batch, GEN) and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
             f"{phase}: tokens of shape {toks.shape} out of [0, {cfg.vocab_size})")
-    emit(phase, arch=arch, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
-         prefill_s=r["prefill_s"], decode_s_per_token=r["decode_s_per_token"],
-         tokens_per_s=r["tokens_per_s"], wall_s=wall,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    require(peak_gb is None or peak < peak_gb, f"{phase}: peak {peak} GB, not under {peak_gb}")
     return launches
+
+
+def run_serving_profile(torch, runtime, phase, cfg, batch, prompt):
+    """A second prefill and 4 greedy decode steps of ``cfg`` from the bf16
+    working copy, under torch.profiler: device busy share, launches, and
+    device time by kernel and by op (the weight GEMMs ``aten::mm``, the
+    batched products ``aten::bmm``) for each; K3 must launch in prefill only,
+    once per attention it runs (whisper: encoder, decoder and cross per
+    layer), and the logits must be finite."""
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    params = mv.init_working_copy(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                                  dev, mv.DAEMON_DEFAULT)
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, prompt))
+    batch_in = {"tokens": torch.as_tensor(tokens, dtype=torch.int32, device=dev)}
+    batch_in.update(M.stub_inputs(cfg, batch_in["tokens"]))
+    prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    attentions = cfg.enc_layers + 2 * cfg.dec_layers if cfg.family == "audio" else cfg.num_layers
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    out = {}
+
+    def run_prefill():
+        out["logits"], out["cache"] = prefill(params, batch_in)
+
+    def run_decode():
+        out["cache"] = _grow_cache(cfg, out["cache"], prompt + 4)
+        tok = torch.argmax(out["logits"], dim=-1).to(torch.int32)
+        out["steps"] = []
+        for i in range(4):
+            tok, lg, out["cache"] = decode(params, out["cache"], tok, prompt + prefix + i)
+            out["steps"].append(lg)
+
+    launches = {}
+    for part, fn in (("prefill", run_prefill), ("4 decode steps", run_decode)):
+        runtime.reset_launches()
+        prof = device_profile(torch, fn, ops=("aten::mm", "aten::bmm"))
+        launches[part] = dict(runtime.LAUNCHES)
+        emit(phase, arch=cfg.name, num_layers=cfg.num_layers, part=f"{part} (bf16 copy)",
+             launches=launches[part], **prof)
+    want = {"prefill": attentions, "4 decode steps": 0}
+    for part, n in want.items():
+        require(launches[part]["flash_attention.forward"] == n,
+                f"{phase} {part}: K3 launched {launches[part]['flash_attention.forward']} times, "
+                f"not {n}")
+    require(all(bool(torch.isfinite(lg).all()) for lg in [out["logits"], *out["steps"]]),
+            f"{phase}: non-finite logits")
+    del params, out
+    free_memory(torch)
+    return {k: launches["prefill"][k] + launches["4 decode steps"][k] for k in runtime.LAUNCHES}
 
 
 def run_ssm_profile(torch, runtime, cfg):
@@ -1044,8 +1154,10 @@ def train_flop(cfg, batch: int, seq: int) -> dict:
     invocation) plus attention's QK^T and PV products, 2·B·H·(dq + dv) per
     (q, k) pair the mask keeps (dq = dv = head_dim, but MLA's 192 and 128),
     three times over (forward and backward), per attention layer (per
-    invocation of the hybrid's shared block; none in the SSM family).  The
-    SSM scans and the recompute of a rematerialised layer are not counted."""
+    invocation of the hybrid's shared block; none in the SSM family; for the
+    enc-dec, the frames as long as the tokens, every pair of the encoder's and
+    the cross-attention's and the causal ones of the decoder's).  The SSM
+    scans and the recompute of a rematerialised layer are not counted."""
     from repro_torch.models import hybrid
     from repro_torch.models import model as M
 
@@ -1065,7 +1177,10 @@ def train_flop(cfg, batch: int, seq: int) -> dict:
     if cfg.attn_kind == "mla":
         dq, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
     weights = 6 * applied * batch * seq
-    attention = 3 * 2 * (dq + dv) * batch * cfg.num_heads * pairs * attn_layers
+    layer_pairs = pairs * attn_layers
+    if cfg.family == "audio":  # the encoder's and the cross-attention's pairs: all of them
+        layer_pairs = cfg.enc_layers * seq * seq + cfg.dec_layers * (pairs + seq * seq)
+    attention = 3 * 2 * (dq + dv) * batch * cfg.num_heads * layer_pairs
     return {"params": n, "params_applied_per_token": applied, "weights_flop": weights,
             "attention_flop": attention, "attention_pairs_per_row_batch": pairs,
             "model_flop": weights + attention}
@@ -1076,10 +1191,12 @@ def free_memory(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def run_train_step(torch, runtime, cfg, phase, moves):
+def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAIN_SEQ):
     """The DaeMon training step at full width: make_train_step(cfg,
-    movement="daemon", movement_cfg=DAEMON_AGGRESSIVE), batch 2 x 4096 from
-    the port's TokenPipeline (seed 0), 4 timed steps then one profiled.
+    movement="daemon", movement_cfg=DAEMON_AGGRESSIVE), batch 2 x 4096 (or
+    ``batch_size`` x ``seq``) from the port's TokenPipeline (seed 0), with
+    the stub frontend's zero frames for the enc-dec, 4 timed steps then one
+    profiled.
     ``moves`` is (folded gradients, page-class weights) a step: K1 and K2
     must each launch their sum a step, K3 and K4 never.
 
@@ -1102,14 +1219,13 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     from repro_torch.models import nn
 
     dev = torch.device("cuda")
-    batch_size = BATCH
     master = nn.init_params(M.model_specs(cfg), torch.Generator(device=dev).manual_seed(SEED), dev)
     state = mv.init_state(master)
     params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
     del master
     step = steps.make_train_step(cfg, total_steps=TRAIN_STEPS, movement="daemon",
                                  movement_cfg=mv.DAEMON_AGGRESSIVE)
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=batch_size, seed=SEED))
     folded = sum(is_foldable(tuple(p.shape)) for p in nn.tree_leaves(params))
     copied = sum(is_page_class(tuple(p.shape)) for p in nn.tree_leaves(params))
@@ -1123,6 +1239,7 @@ def run_train_step(torch, runtime, cfg, phase, moves):
     def one_step():
         nonlocal params, state
         batches.append({k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()})
+        batches[-1].update(M.stub_inputs(cfg, batches[-1]["tokens"]))
         params, state, metrics = step(params, state, batches[-1])
         return metrics
 
@@ -1154,9 +1271,9 @@ def run_train_step(torch, runtime, cfg, phase, moves):
         first_aux_again = float(again["aux"])
     residual = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
 
-    tokens = batch_size * TRAIN_SEQ
+    tokens = batch_size * seq
     step_s = statistics.median(times[1:])
-    flop = train_flop(cfg, batch_size, TRAIN_SEQ)
+    flop = train_flop(cfg, batch_size, seq)
     ops, spans = prof.pop("device_ms_by_op"), prof.pop("device_span_ms_by_range")
     breakdown = {
         "device_busy_ms": prof["device_busy_ms"],
@@ -1175,7 +1292,7 @@ def run_train_step(torch, runtime, cfg, phase, moves):
         "forward and loss, the backward runs on autograd's thread)": spans,
         "host_idle_share": prof["device_idle_share"],
     }
-    emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size, seq_len=TRAIN_SEQ,
+    emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size, seq_len=seq,
          tokens_per_step=tokens, movement="daemon (DAEMON_AGGRESSIVE)", steps=TRAIN_STEPS,
          losses=losses, first_batch_loss_after_training=first_again,
          ce_and_aux_timed_steps=parts,
@@ -1624,7 +1741,8 @@ def run_reference(torch):
 
     tol = 8e-2  # bf16 compute on both sides, rounded at different places
     worst, routing = {}, {}
-    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH, MOE_ARCH, "dbrx-132b"):
+    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH, MOE_ARCH, "dbrx-132b", AUDIO_ARCH,
+                 VLM_ARCH):
         cfg = get_config(arch).reduced()
         master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                                 torch.device("cpu"))
@@ -1632,19 +1750,23 @@ def run_reference(torch):
         # the attention chunk (32) divides, as JAX's does
         n = 64 if cfg.attn_kind == "mla" else 40
         prompt = torch.randint(0, cfg.vocab_size, (2, n), generator=torch.Generator().manual_seed(1))
+        stub = random_stub_inputs(torch, cfg, prompt)
+        prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
         outs, record = {}, None
         for name in ("cpu", "cuda"):
             dev = torch.device(name)
             params = mv.working_copy(nn.tree_map(lambda t: t.to(dev), master), mv.DAEMON_DEFAULT)
+            inputs = {"tokens": prompt.to(dev), **{k: t.to(dev) for k, t in stub.items()}}
             with moe_routes(torch, replay=record) as record:
-                logits, cache = steps.make_prefill_step(cfg)(params, {"tokens": prompt.to(dev)})
+                logits, cache = steps.make_prefill_step(cfg)(params, inputs)
                 cache = _grow_cache(cfg, cache, n + 4)
                 seq = [logits.cpu()]
                 # the CPU's greedy tokens on both sides
                 feed = [torch.argmax(lg, -1).to(torch.int32).to(dev) for lg in outs.get("cpu", [])]
                 tok = feed[0] if feed else torch.argmax(logits, -1).to(torch.int32)
                 for i in range(4):
-                    nxt, lg, cache = steps.make_decode_step(cfg)(params, cache, tok, n + i)
+                    nxt, lg, cache = steps.make_decode_step(cfg)(params, cache, tok,
+                                                                 n + prefix + i)
                     seq.append(lg.cpu())
                     tok = feed[i + 1] if feed else nxt
             outs[name] = seq
@@ -1657,14 +1779,25 @@ def run_reference(torch):
     emit("reference", max_logit_diff_card_vs_cpu=worst, tol=tol,
          moe_routing_card_vs_cpu=routing, prob_tol=PROB_TOL,
          note="differs: assignments the card alone would route to another expert or order")
-    for arch in (ARCH, HYBRID_ARCH, SSM_ARCH, MOE_ARCH):
+    for arch in (ARCH, HYBRID_ARCH, SSM_ARCH, MOE_ARCH, AUDIO_ARCH, VLM_ARCH):
         run_reference_train(torch, arch)
+
+
+def random_stub_inputs(torch, cfg, tokens, seed=2):
+    """Like ``model.stub_inputs``, but drawn from ``seed`` on the CPU, so the
+    card's encoder and patch positions see more than zeros."""
+    from repro_torch.models import model as M
+
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(z.shape, generator=gen).to(z.dtype)
+            for k, z in M.stub_inputs(cfg, tokens).items()}
 
 
 def run_reference_train(torch, arch):
     """3 DAEMON_AGGRESSIVE train steps of a reduced model (danube: SWA window
     16 < seq 64; zamba2: the shared block, Mamba2's SSD body; falcon-mamba:
-    the chunked scan) on the card (K1/K2 in the fold and the working copy,
+    the chunked scan; whisper: encoder, cross-attention; internvl2: 4 patches
+    + 60 tokens, which the attention chunk divides) on the card (K1/K2 in the fold and the working copy,
     nn.attention and the chunked scan in the loss) and on the CPU (plain
     versions), from the same state and batches: the losses agree within the
     CPU parity tests' LOSS_RTOL."""
@@ -1678,10 +1811,13 @@ def run_reference_train(torch, arch):
     cfg = get_config(arch).reduced()
     master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                             torch.device("cpu"))
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+    seq = 64 - (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=2,
                                     seed=SEED))
-    batches = [pipe.batch_at(i) for i in range(3)]
+    batches = [{k: torch.as_tensor(v) for k, v in pipe.batch_at(i).items()} for i in range(3)]
     pipe.close()
+    for i, b in enumerate(batches):
+        b.update(random_stub_inputs(torch, cfg, b["tokens"], seed=10 + i))
     losses, residual, record = {}, {}, None
     for name in ("cpu", "cuda"):
         dev = torch.device(name)
@@ -1693,8 +1829,7 @@ def run_reference_train(torch, arch):
         losses[name] = []
         with moe_routes(torch, replay=record) as record:
             for b in batches:
-                params, state, m = step(params, state,
-                                        {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+                params, state, m = step(params, state, {k: v.to(dev) for k, v in b.items()})
                 losses[name].append(float(m["loss"]))
         residual[name] = sum(float(r.abs().sum()) for r in nn.tree_leaves(state.residual))
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
@@ -1741,7 +1876,7 @@ def main() -> int:
          libraries=[runtime.library_path(n).name for n in runtime.SOURCES])
 
     cfg, ssm_cfg, hybrid_cfg = get_config(ARCH), get_config(SSM_ARCH), get_config(HYBRID_ARCH)
-    moe_cfg = get_config(MOE_ARCH)
+    moe_cfg, audio_cfg, vlm_cfg = get_config(MOE_ARCH), get_config(AUDIO_ARCH), get_config(VLM_ARCH)
     k1, k2 = check_block_quant(torch, cfg)
     bq_moe = check_block_quant_moe(torch, moe_cfg)
     k3 = check_flash_attention(torch, cfg)
@@ -1749,28 +1884,43 @@ def main() -> int:
     k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
 
-    per_phase = {"serve": run_serve(torch, runtime, "serve", ARCH,
+    per_phase = {"serve": run_serve(torch, runtime, "serve", cfg,
                                     {"flash_attention.forward": cfg.num_layers})}
     torch.cuda.empty_cache()
     per_phase["int8_copy"] = run_int8_copy(torch, runtime, cfg)
     torch.cuda.empty_cache()
-    per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", SSM_ARCH,
+    per_phase["serve_ssm"] = run_serve(torch, runtime, "serve_ssm", ssm_cfg,
                                        {"mamba_scan.forward": ssm_cfg.num_layers})
     torch.cuda.empty_cache()
     per_phase["profile_ssm"] = run_ssm_profile(torch, runtime, ssm_cfg)
     free_memory(torch)
     ninv = hybrid.n_invocations(hybrid_cfg)
-    per_phase["serve_hybrid"] = run_serve(torch, runtime, "serve_hybrid", HYBRID_ARCH,
+    per_phase["serve_hybrid"] = run_serve(torch, runtime, "serve_hybrid", hybrid_cfg,
                                           {"flash_attention.forward": ninv,
                                            "mamba_scan.forward": 0})
     free_memory(torch)
     per_phase["profile_hybrid"] = run_hybrid_profile(torch, runtime, hybrid_cfg)
     none = {k: 0 for k in ("block_quant.quantize", "block_quant.dequantize",
                            "flash_attention.forward", "mamba_scan.forward")}
-    per_phase["serve_moe"] = run_serve(torch, runtime, "serve_moe", MOE_ARCH, none)
+    per_phase["serve_moe"] = run_serve(torch, runtime, "serve_moe", moe_cfg, none)
     free_memory(torch)
     per_phase["int8_copy_moe"], per_phase["profile_moe"] = run_int8_copy_moe(torch, runtime,
                                                                              moe_cfg)
+    # whisper: K3 3 times a layer at prefill (encoder, decoder, cross), 18
+    per_phase["serve_audio"] = run_serve(
+        torch, runtime, "serve_audio", audio_cfg,
+        {**none, "flash_attention.forward": audio_cfg.enc_layers + 2 * audio_cfg.dec_layers},
+        batch=AUDIO_BATCH, prompt=AUDIO_PROMPT)
+    free_memory(torch)
+    per_phase["profile_audio"] = run_serving_profile(torch, runtime, "profile_audio", audio_cfg,
+                                                     AUDIO_BATCH, AUDIO_PROMPT)
+    vlm_cut = dataclasses.replace(vlm_cfg, num_layers=VLM_SERVE_LAYERS)
+    per_phase["serve_vlm"] = run_serve(
+        torch, runtime, "serve_vlm", vlm_cut, {**none, "flash_attention.forward": VLM_SERVE_LAYERS},
+        peak_gb=VLM_PEAK_GB)
+    free_memory(torch)
+    per_phase["profile_vlm"] = run_serving_profile(torch, runtime, "profile_vlm", vlm_cut, BATCH,
+                                                   PROMPT)
     per_phase["train_step"] = run_train_step(torch, runtime, cfg, "train_step", (11, 7))
     per_phase["train_hybrid"] = run_train_step(torch, runtime, hybrid_cfg, "train_hybrid", (16, 4))
     per_phase["train_ssm"] = run_train_step(
@@ -1779,6 +1929,8 @@ def main() -> int:
     per_phase["train_moe"] = run_train_step(
         torch, runtime, dataclasses.replace(moe_cfg, num_layers=MOE_TRAIN_LAYERS), "train_moe",
         (23, 15))
+    per_phase["train_audio"] = run_train_step(torch, runtime, audio_cfg, "train_audio", (24, 18),
+                                              batch_size=AUDIO_BATCH, seq=AUDIO_TRAIN_SEQ)
     per_phase["collectives"] = run_collectives(torch, runtime, cfg)
     run_checkpoint(torch, cfg)
     per_phase["train"] = run_train(torch, runtime)
@@ -1838,8 +1990,10 @@ def main() -> int:
          "share_of_bound": k3["share_of_bound"],
          "achieved_tflop_per_s": k3["achieved_tflop_per_s"],
          "hgmma_instructions": k3["hgmma_instructions"],
-         "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA); zamba2's "
-                "serving shape is on the kernels.flash_attention line"},
+         "other_shapes": k3["other_shapes"], "wgmma_ptxas": k3["wgmma_ptxas"],
+         "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA); other_shapes: "
+                "zamba2's, whisper's (encoder, decoder, cross) and internvl2's serving "
+                "shapes, one launch each"},
         {"name": "mamba_scan.forward (K4)", "route": "cuda",
          "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:27",

@@ -9,6 +9,13 @@ decode on one device, with the DaeMon working copy of the weights.
         --batch 2 --prompt-len 8192 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
         --batch 2 --prompt-len 8192 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --batch 16 --prompt-len 1500 --gen 16
+
+A VLM (internvl2) is served with zero patch embeddings in front of the
+prompt, an audio model (whisper) with zero frames as long as the prompt, as
+in JAX's driver.  internvl2-76b at full depth does not fit one card;
+``serve_config`` serves a config cut in depth.
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -40,14 +47,31 @@ def serve(
     seed: int = 0,
     device=None,
 ):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    return serve_config(cfg, batch=batch, prompt_len=prompt_len, gen_tokens=gen_tokens,
+                        movement=movement, mesh_shape=mesh_shape, seed=seed, device=device)
+
+
+def serve_config(
+    cfg,
+    *,
+    batch: int = 4,
+    prompt_len: int = 64,
+    gen_tokens: int = 32,
+    movement: str = "daemon",
+    mesh_shape=None,
+    seed: int = 0,
+    device=None,
+):
+    """``serve`` on a ``ModelConfig``: random weights from ``seed``, a random
+    prompt, prefill, then greedy decode."""
     dev = devices.resolve(device)
     if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh {mesh_shape}: the port serves on one device until ROADMAP item \"Sharding\""
         )
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
     specs = M.model_specs(cfg)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -63,6 +87,8 @@ def serve(
     total_len = prompt_len + gen_tokens
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     batch_in = {"tokens": torch.as_tensor(tokens, dtype=torch.int32, device=dev)}
+    batch_in.update(M.stub_inputs(cfg, batch_in["tokens"]))
+    prefix = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
 
     # prefill builds a cache sized for the prompt; decode appends in a cache
     # sized total_len: re-home the prefill cache into the bigger buffers
@@ -79,7 +105,7 @@ def serve(
     out_tokens = [tok]
     t0 = time.perf_counter()
     for i in range(gen_tokens - 1):
-        tok, logits, cache = decode(params, cache, tok, prompt_len + i)
+        tok, logits, cache = decode(params, cache, tok, prompt_len + prefix + i)
         out_tokens.append(tok)
     devices.synchronize(dev)
     t_decode = time.perf_counter() - t0
@@ -93,8 +119,15 @@ def serve(
 
 
 def _grow_cache(cfg, cache, total_len: int):
-    """Pad the seq dim (axis 2: [L or invocations, B, S, ...]) of attention
-    cache buffers up to total_len.  An SWA cache is a ring of at most ``window`` slots: one
+    """Pad the seq dim (axis 2: [L or invocations, B, S, ...]) of the self-
+    attention cache buffers up to total_len, the text tokens of prompt and
+    generation.  A VLM's cache also holds its ``num_prefix_tokens`` patch
+    positions in front, and grows to prefix + total_len: decode writes at
+    prompt_len + prefix + i.  JAX's ``_grow_cache`` grows it to total_len,
+    so its decode wraps (slot = pos % length) onto the first patches' K/V.
+    An audio cache's cross K/V (``ck``, ``cv``: the encoder's frames) stay
+    at the frame count; JAX's pads them with zero keys, which its decode
+    attends to (the cross-attention has no ``kv_len``).  An SWA cache is a ring of at most ``window`` slots: one
     already ``window`` long stays put, and a shorter one (a prompt shorter
     than the window) grows to ``min(window, total_len)``, not to total_len,
     so decode keeps attending inside the window.  Its slots 0..prompt_len-1
@@ -104,6 +137,8 @@ def _grow_cache(cfg, cache, total_len: int):
     ``{"state", "conv"}`` dict: the recurrent state and the conv tail) has no
     seq dim and is left alone, as the docstring of JAX's ``_grow_cache``
     intends; its code pads the conv tail, and decode then fails."""
+    if cfg.family == "vlm":
+        total_len += cfg.num_prefix_tokens
     target = min(cfg.window, total_len) if cfg.attn_kind == "swa" else total_len
 
     def grow(x):
@@ -119,7 +154,7 @@ def _grow_cache(cfg, cache, total_len: int):
         if isinstance(tree, dict):
             if set(tree) == {"state", "conv"}:
                 return tree
-            return {k: walk(v) for k, v in tree.items()}
+            return {k: v if k in ("ck", "cv") else walk(v) for k, v in tree.items()}
         return grow(tree)
 
     return walk(cache)

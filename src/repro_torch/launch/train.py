@@ -4,12 +4,15 @@
         --batch 2 --seq 4096 --steps 3 --movement daemon
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
         --batch 2 --seq 4096 --steps 3 --movement daemon
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --batch 16 --seq 1024 --steps 3 --movement daemon
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --steps 20 --batch 4 --seq 32 --movement daemon --device cpu --ckpt-dir /tmp/ck
 
-The dense, MoE (deepseek-v2-lite with MLA, dbrx), SSM (falcon-mamba: the
-chunked scan, never kernel K4) and hybrid (zamba2) families train; the others
-raise with their ROADMAP item.
+Every family trains: dense, MoE (deepseek-v2-lite with MLA, dbrx), SSM
+(falcon-mamba: the chunked scan, never kernel K4), hybrid (zamba2), VLM
+(internvl2: zero patch embeddings in front of each batch) and enc-dec
+(whisper: zero frames of ``seq_len``), as JAX's driver feeds them.
 
 Wires together: config -> data pipeline -> (baseline | daemon) train step ->
 async checkpointing -> supervisor (heartbeat + straggler policy) ->
@@ -105,6 +108,7 @@ def train(
     try:
         for i, host_batch in zip(range(start_step, steps), pipe):
             batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+            batch.update(M.stub_inputs(cfg, batch["tokens"]))
             t0 = time.time()
             params, state, metrics = step_fn(params, state, batch)
             loss = float(metrics["loss"])  # waits for the step

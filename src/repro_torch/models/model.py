@@ -1,5 +1,5 @@
 """Model API of the port (port of ``repro.models.model``): the dense, MoE,
-SSM and hybrid families.
+SSM, hybrid, VLM and enc-dec (audio) families.
 
     model_specs(cfg)            -> ParamSpec tree (single source of truth)
     loss_fn(cfg, params, batch) -> (loss, metrics)      [train]
@@ -8,8 +8,9 @@ SSM and hybrid families.
     cache_specs(cfg, batch, seq_len)
 
 The cross-entropy is computed in sequence chunks against the head, so the
-full (B, S, V) logits are never materialized.  The other families raise until
-their ROADMAP items land.
+full (B, S, V) logits are never materialized.  A VLM batch carries
+``patches`` (B, P, d), put in front of the embedded tokens; an audio batch
+``frames`` (B, S, d), the encoder's input.
 """
 from __future__ import annotations
 
@@ -19,25 +20,11 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, mamba, nn, transformer
+from repro_torch.models import encdec, hybrid, mamba, nn, transformer
 from repro_torch.models.nn import ParamSpec
 
 LOSS_CHUNK = 256
 COMPUTE_DTYPE = torch.bfloat16
-
-_NOT_PORTED = {
-    "vlm": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
-    "audio": "ROADMAP Queue 1 item 14 (enc-dec + VLM)",
-}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}"
-            )
-        raise ValueError(cfg.family)
 
 
 # --------------------------------------------------------------------------
@@ -46,7 +33,8 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_ported(cfg)
+    if cfg.family == "audio":
+        return encdec.model_specs(cfg)
     if cfg.family in ("ssm", "hybrid"):
         s: Dict[str, Any] = {
             "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
@@ -72,6 +60,20 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         active = moe_layers * cfg.top_k * 3 * cfg.d_model * cfg.moe_d_ff
         total = total - routed + active
     return total
+
+
+def stub_inputs(cfg: ModelConfig, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs for a batch of ``tokens`` (B, S), as JAX's
+    drivers feed them: zero patch embeddings (B, num_prefix_tokens, d) for a
+    VLM, zero frames (B, S, d) for an audio model, in bf16; none otherwise."""
+    b, s = tokens.shape
+    if cfg.family == "vlm":
+        return {"patches": torch.zeros((b, cfg.num_prefix_tokens, cfg.d_model),
+                                       dtype=COMPUTE_DTYPE, device=tokens.device)}
+    if cfg.family == "audio":
+        return {"frames": torch.zeros((b, s, cfg.d_model), dtype=COMPUTE_DTYPE,
+                                      device=tokens.device)}
+    return {}
 
 
 # --------------------------------------------------------------------------
@@ -107,10 +109,18 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     """Returns (hidden, cache, aux_loss).  ``training`` takes the
     differentiable paths (``nn.attention``, the chunked SSM scan) and
     rematerialises each layer per ``cfg.remat``; otherwise prefill goes
-    through the kernels."""
-    _check_ported(cfg)
+    through the kernels.  A VLM's hidden states are those of the text
+    positions only; its cache holds the patch positions too."""
+    if cfg.family == "audio":
+        frames = batch["frames"].to(COMPUTE_DTYPE)
+        enc_out = encdec.encode(cfg, params, frames, training=training)
+        x, cache = encdec.decode_train(cfg, params, batch["tokens"], enc_out, training=training,
+                                       make_cache=make_cache)
+        return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
     x = _embed(cfg, params, batch["tokens"])
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(COMPUTE_DTYPE), x], dim=1)
     if cfg.family == "ssm":
         block = nn.remat(functools.partial(mamba.mamba1_forward, cfg, make_cache=make_cache,
                                          training=training), cfg, training)
@@ -132,6 +142,8 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     x, cache, aux = transformer.trunk_forward(cfg, params, x, positions, training=training,
                                               make_cache=make_cache)
     x = nn.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, batch["patches"].shape[1]:]  # loss over text positions only
     return x, cache, aux
 
 
@@ -183,9 +195,11 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 
 def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
-    """token: (B,) integer, pos: the write position. -> (logits, cache); the
-    cache is updated in place."""
-    _check_ported(cfg)
+    """token: (B,) integer, pos: the write position (a VLM's counts its patch
+    positions). -> (logits, cache); the cache is updated in place."""
+    if cfg.family == "audio":  # the decoder applies ln_f itself
+        x, cache = encdec.decode_step(cfg, params, cache, token, pos)
+        return logits_at(cfg, params, x[:, 0]), cache
     x = _embed(cfg, params, token)[:, None, :]
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
@@ -201,7 +215,8 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
-    _check_ported(cfg)
+    if cfg.family == "audio":
+        return encdec.cache_specs(cfg, batch, seq_len)
     if cfg.family == "ssm":
         return nn.stack_specs(mamba.mamba1_cache_specs(cfg, batch), cfg.num_layers)
     if cfg.family == "hybrid":

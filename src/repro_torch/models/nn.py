@@ -223,6 +223,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(seq_len: int, d_model: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(seq_len, d_model) f32 table: sin at even, cos at odd columns, of
+    (position + offset) / 10000^(2i / d_model); ``offset`` is decode's write
+    position.  The division is a product with the f32 reciprocal of the
+    correctly rounded power, as XLA compiles JAX's under jit (dividing moves
+    an angle by an ulp: up to 1.2e-4 in sin/cos near position 2048); sin and
+    cos are taken in f64 and rounded.  On the CPU numpy takes them: torch's
+    multithreaded f64 sin there rounds some rows differently from one
+    process to the next."""
+    dev = torch.device("cpu" if device is None else device)
+    inv = np.reciprocal(np.power(10_000.0, np.arange(0, d_model, 2) / d_model).astype(np.float32))
+    pos = (torch.arange(seq_len, device=dev) + offset).to(torch.float32)[:, None]
+    ang = (pos * torch.from_numpy(inv).to(dev)).to(torch.float64)
+    if dev.type == "cpu":
+        sin, cos = torch.from_numpy(np.sin(ang.numpy())), torch.from_numpy(np.cos(ang.numpy()))
+    else:
+        sin, cos = torch.sin(ang), torch.cos(ang)
+    return torch.stack([sin, cos], dim=-1).reshape(seq_len, d_model).to(torch.float32)
+
+
 # --------------------------------------------------------------------------
 # attention — memory-bounded chunked softmax attention (port of the XLA
 # path).  Prefill goes through the flash kernel (kernels/flash_attention);

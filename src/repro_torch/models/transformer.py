@@ -1,6 +1,7 @@
 """Decoder-only transformer trunk (port of ``repro.models.transformer``): the
-dense GQA archs (minicpm, danube, stablelm, qwen3) and the MoE archs
-(deepseek-v2-lite with MLA, dbrx) as segments.
+dense GQA archs (minicpm, danube, stablelm, qwen3), the VLM's language
+backbone (internvl2) and the MoE archs (deepseek-v2-lite with MLA, dbrx) as
+segments.
 
 Layers form *segments* of uniform structure whose parameters are stacked on a
 leading ``layers`` axis, as in the JAX package; where JAX scans a segment, the
@@ -47,7 +48,7 @@ class Segment:
 
 
 def segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [Segment("seg0", cfg.num_layers, False)]
     if cfg.family == "moe":
         segs = []
@@ -55,8 +56,6 @@ def segments(cfg: ModelConfig) -> List[Segment]:
             segs.append(Segment("seg0", cfg.first_dense_layers, False))
         segs.append(Segment(f"seg{len(segs)}", cfg.num_layers - cfg.first_dense_layers, True))
         return segs
-    if cfg.family == "vlm":
-        raise NotImplementedError("the VLM family is not ported yet (ROADMAP Queue 1 item 14)")
     raise ValueError(f"transformer trunk does not build family {cfg.family!r}")
 
 

@@ -23,7 +23,8 @@ from repro_torch.models import nn
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["minicpm-2b", "h2o-danube-1.8b", "stablelm-12b", "qwen3-14b"]
-PORTED = DENSE + ["falcon-mamba-7b", "zamba2-1.2b", "deepseek-v2-lite-16b", "dbrx-132b"]
+PORTED = DENSE + ["falcon-mamba-7b", "zamba2-1.2b", "deepseek-v2-lite-16b", "dbrx-132b",
+                  "internvl2-76b", "whisper-base"]
 
 
 def _flat(tree, prefix=()):
@@ -110,10 +111,12 @@ def test_deepseek_param_count():
     assert cfg.active_param_count() == 2_661_150_208
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-base"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config(arch).param_count()
+@pytest.mark.parametrize("arch, count", [("internvl2-76b", 70_553_706_496),
+                                         ("whisper-base", 83_194_368)])
+def test_vlm_and_enc_dec_param_counts(arch, count):
+    cfg = configs.get_config(arch)
+    assert cfg.param_count() == M.param_count(cfg) == count
+    assert JM.param_count(jax_configs.get_config(arch)) == count
 
 
 # --------------------------------------------------------------------------
