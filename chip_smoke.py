@@ -19,84 +19,91 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               recorded); K1/K2 also at deepseek-v2-lite's 15 page-class
               shapes at full depth, three of them 4.80e9-element expert
               stacks held on row slices across element 2^31;
-  4. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
+  4. capture  for each Hopper launch in repro_torch.capture's catalog (K3's
+              prefill and decode, K4 and K1 at the JAX catalog's shapes): the
+              kernel at that shape against its plain version, the shim's
+              grid, threads and CTAs an SM against the launcher's and the
+              card's occupancy query, and the trace's counts (accesses,
+              bytes moved by operand, footprint, compressibility, compute
+              and byte time) beside the launch's CUDA-event time;
+  5. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
-  5. int8     the page-class int8 working copy of the same master (K1 and K2
+  6. int8     the page-class int8 working copy of the same master (K1 and K2
               once per stacked weight), then prefill + 4 greedy decode steps
               from it, against the bf16 copy run under torch.profiler (device
               busy share and time by kernel, prefill and decode);
-  6. serve_ssm serve("falcon-mamba-7b", reduced=False, batch=2, prompt_len=8192,
+  7. serve_ssm serve("falcon-mamba-7b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the scan kernel must launch once per layer;
-  7. profile_ssm a second falcon prefill and 4 decode steps under
+  8. profile_ssm a second falcon prefill and 4 decode steps under
               torch.profiler: K4's and the GEMMs' share of prefill device
               time, and decode's idle share;
-  8. serve_hybrid serve("zamba2-1.2b", reduced=False, batch=2, prompt_len=8192,
+  9. serve_hybrid serve("zamba2-1.2b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per
               invocation of the shared attention block (7), the scan kernel
               never;
-  9. profile_hybrid a second zamba2 prefill under torch.profiler: K3's, the
+ 10. profile_hybrid a second zamba2 prefill under torch.profiler: K3's, the
               weight GEMMs', the SSD einsums' and the other (elementwise)
               kernels' shares of its device time;
- 10. serve_moe serve("deepseek-v2-lite-16b", reduced=False, batch=2,
+ 11. serve_moe serve("deepseek-v2-lite-16b", reduced=False, batch=2,
               prompt_len=8192, gen_tokens=16) at full width and depth: no
               kernel may launch (MLA's Dq 192 != Dv 128, so no K3);
- 11. int8_copy_moe the streamed DAEMON_AGGRESSIVE working copy
+ 12. int8_copy_moe the streamed DAEMON_AGGRESSIVE working copy
               (init_working_copy: no f32 master beside it; K1 = K2 = 15),
               prefill and 4 greedy decode steps from it, against the bf16
               copy (logits kept on the host);
- 12. profile_moe that bf16 copy's prefill and decode under torch.profiler:
+ 13. profile_moe that bf16 copy's prefill and decode under torch.profiler:
               MLA attention's, the expert products', the routing and
               dispatch's and the rest's shares of prefill, decode's launches
               a token and idle share;
- 13. serve_audio serve("whisper-base", reduced=False, batch=16,
+ 14. serve_audio serve("whisper-base", reduced=False, batch=16,
               prompt_len=1500, gen_tokens=16) at full width and depth (1500
               frames, the encoder's 30-second window): the flash kernel must
               launch 18 times (encoder, decoder and cross-attention, once a
               layer each), K1/K2/K4 never;
- 14. profile_audio a second whisper prefill and 4 decode steps under
+ 15. profile_audio a second whisper prefill and 4 decode steps under
               torch.profiler: device busy share, launches, device time by
               kernel and op;
- 15. serve_vlm  the same serving path (serve_config) for internvl2-76b at full
+ 16. serve_vlm  the same serving path (serve_config) for internvl2-76b at full
               width on its first 27 of 80 layers, batch 2, 256 zero patches +
               an 8192-token prompt, 16 tokens: the flash kernel once a layer
               (head_dim 128), the peak under 75 GB;
- 16. profile_vlm as 14, for that internvl2;
- 17. train_step the DaeMon training step of h2o-danube-1.8b at full width and
+ 17. profile_vlm as 15, for that internvl2;
+ 18. train_step the DaeMon training step of h2o-danube-1.8b at full width and
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
               K2 must launch 18 times a step (11 folded gradients, 7 working-
               copy weights), K3 and K4 never; falling losses, a live residual,
               a working copy equal to the plain int8 round trip, and the fold
               of one more step's gradients equal to the plain fold;
- 18. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
+ 19. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
               20 a step (16 folded gradients, 4 working-copy weights);
- 19. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
+ 20. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
               of 64 layers (the whole model's training state, ~131 GB, does
               not fit the card): K1 = K2 = 12 a step (9 + 3), the chunked
               scan in training, K4 never;
- 20. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
+ 21. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
               first 4 of 27 layers (the dense layer and 3 MoE layers; the
               whole model's state, ~314 GB, does not fit): K1 = K2 = 38 a
               step (23 + 15), the first batch's cross-entropy lowered;
- 21. train_audio the same for whisper-base at full width and depth, batch 16
+ 22. train_audio the same for whisper-base at full width and depth, batch 16
               x 1024 with zero frames: K1 = K2 = 42 a step (24 + 18);
- 22. collectives  the DaeMon collectives on one process group of world size 1
+ 23. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
               chunked all-gathers of its 7 stacked weights; K1/K2 must launch
               inside them, and the results must equal the same calls on CPU
               copies (gloo, plain versions) bit for bit; timed, with the wire
               bytes int8 against f32;
- 23. checkpoint  save_async's host snapshot of full-width danube's (params,
+ 24. checkpoint  save_async's host snapshot of full-width danube's (params,
               DaemonState), timed; reduced danube's state after 2 card train
               steps serialised and restored onto the card bit for bit; save
               without zstandard raising before it writes;
- 24. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+ 25. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 25. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 26. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 26. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
+ 27. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
               deepseek, dbrx, whisper, internvl2) on the card against the
               plain path on the CPU, and 3 DAEMON_AGGRESSIVE train steps each
               of reduced danube, zamba2, falcon-mamba, deepseek, whisper and
@@ -104,7 +111,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the card as on the CPU;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (4-22, 24) and read just after; launches made to compare a
+main-path phase (5-23, 25) and read just after; launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -127,15 +134,21 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W), one
+# source with the port's trace capture.
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOP_PER_S,
+    F32_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    SMS,
+)
+
 # exp's floor, reported beside the bound: 132 SMs, 16 SFU results a clock
 # each (NVIDIA's CUDA documentation, arithmetic throughput at compute
 # capability 9.0), 1.98 GHz
-SMS, SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 132, 16, 1.98e9
+SFU_EXP_PER_CLOCK, MAX_SM_CLOCK_HZ = 16, 1.98e9
 
 ARCH = "h2o-danube-1.8b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -798,7 +811,95 @@ def check_mamba_scan(torch, cfg):
 
 
 # --------------------------------------------------------------------------
-# phases 4-26: the main paths and the reference check
+# phase 4: the Hopper launches of the trace-capture catalog
+# --------------------------------------------------------------------------
+
+
+def capture_case(torch, geom, cfg, gen):
+    """The launch of one catalog entry on the card: (a call of the kernel at
+    the entry's shape, its max |err| against the plain version on the same
+    inputs, the tolerance, and the launch the launcher makes and the card's
+    occupancy query gives), at the ``kernels`` phase's tolerances."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.block_quant import kernel as bq, ref as bq_ref
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    from repro_torch.kernels.mamba_scan import kernel as ms, ref as ms_ref
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    if geom.kernel == "flash_attention":
+        b, sq, skv, h, kvh, d = (cfg[k] for k in ("b", "sq", "skv", "h", "kvh", "d"))
+        q, k, v = (randn(b, sq, h, d).bfloat16(), randn(b, skv, kvh, d).bfloat16(),
+                   randn(b, skv, kvh, d).bfloat16())
+        kw = {"causal": cfg["causal"], "window": 0}
+        expect = fa_ref.attention_ref(q, k, v, **kw).float()
+        diff = (fa.forward(q, k, v, **kw).float() - expect).abs()
+        excess = float((diff - 1e-2 * expect.abs()).max())
+        require(excess <= 1e-5, f"capture: K3 at {cfg}: |err| exceeds 1e-5 + 1e-2|ref| by {excess}")
+        return (lambda: fa.forward(q, k, v, **kw), float(diff.max()), "|err| <= 1e-5 + 1e-2|ref|",
+                fa.forward_bf16_launch(b, sq, h, d))
+    if geom.kernel == "mamba_scan":
+        b, s, d, n = (cfg[k] for k in ("b", "s", "d", "n"))
+        # tests/test_kernels.py's distributions; x in bf16, as the model passes it
+        x, bm, cm = randn(b, s, d).bfloat16(), randn(b, s, n), randn(b, s, n)
+        a = -torch.exp(randn(d, n) * 0.5)
+        dt = F.softplus(randn(b, s, d) - 1.0)
+        err = 0.0
+        for out, expect in zip(ms.forward(dt, a, bm, cm, x), ms_ref.selective_scan_ref(dt, a, bm, cm, x)):
+            diff = (out - expect).abs()
+            excess = float((diff - 1e-4 * expect.abs()).max())
+            require(excess <= 1e-4, f"capture: K4 at {cfg}: |err| exceeds 1e-4 + 1e-4|ref| by {excess}")
+            err = max(err, float(diff.max()))
+        return (lambda: ms.forward(dt, a, bm, cm, x), err, "|err| <= 1e-4 + 1e-4|ref|",
+                ms.forward_launch(b, d, n, torch.bfloat16))
+    x = randn(cfg["r"], cfg["c"]) * 3
+    (q, scales), (q_ref, s_ref) = bq.quantize(x), bq_ref.quantize_ref(x)
+    require(torch.equal(q, q_ref) and torch.equal(scales, s_ref),
+            f"capture: K1 at {cfg}: codes or scales differ from the plain version")
+    return (lambda: bq.quantize(x), 0.0, "codes and scales equal",
+            bq.quantize_launch(x.numel() // bq.BLOCK, x.dtype))
+
+
+def run_capture(torch):
+    """Each Hopper launch of ``repro_torch.capture``'s catalog: the kernel
+    at the entry's shape held against its plain version, the shim's grid,
+    threads and CTAs an SM held to the launcher's and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``'s, and the trace's
+    counts beside the launch's CUDA-event median.  ``trace_compute_ms`` is
+    the trace's gaps over the simulator's clock; ``trace_bytes_ms`` its
+    moved bytes at the card's memory rate."""
+    from repro_torch import capture
+    from repro_torch.capture.recorder import CLOCK_HZ, PEAK_BY_UNIT
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, entry in capture.CAPTURED.items():
+        res = capture.capture(name)
+        geom = res.geom
+        fn, err, tol, launch = capture_case(torch, geom, entry.config, gen)
+        model = {"grid": tuple(geom.grid), "threads": geom.threads,
+                 "ctas_per_sm": geom.ctas_per_sm}
+        require(all(model[k] == launch[k] for k in model),
+                f"capture {name}: the shim's launch {model} is not the card's {launch}")
+        flop = geom.flops_per_step * sum(geom.steps)
+        moved = sum(res.moved_bytes.values())
+        emit("capture", name=name, kernel=geom.kernel, config=entry.config,
+             launch={**launch, "grid": list(launch["grid"])}, ctas=geom.n_ctas,
+             steps=sum(geom.steps), max_abs_err=err, tol=tol,
+             n_accesses=res.n_accesses, moved_bytes=res.moved_bytes, footprint=res.footprint,
+             compressibility=capture.measured_compressibility_of(name),
+             trace_compute_ms=float(res.gaps.sum()) / CLOCK_HZ * 1e3,
+             flop=flop, flop_ms=flop / PEAK_BY_UNIT[geom.flop_unit] * 1e3,
+             trace_bytes=moved, trace_bytes_ms=moved / HBM_BYTES_PER_S * 1e3,
+             ms=time_ms(torch, fn))
+        free_memory(torch)
+
+
+# --------------------------------------------------------------------------
+# phases 5-27: the main paths and the reference check
 # --------------------------------------------------------------------------
 
 
@@ -1008,7 +1109,7 @@ def run_int8_copy(torch, runtime, cfg):
 
     # the bf16 copy (serve's), fed the same tokens, for comparison (not
     # counted), under the profiler: where the device time goes, and how much
-    # of the wall time the device is busy (profiled, so slower than phase 4)
+    # of the wall time the device is busy (profiled, so slower than phase 5)
     params = mv.working_copy(master, mv.DAEMON_DEFAULT)
     del master
     out = {}
@@ -1850,7 +1951,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
     from repro_torch.models import hybrid
@@ -1883,6 +1983,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
+    run_capture(torch)
 
     per_phase = {"serve": run_serve(torch, runtime, "serve", cfg,
                                     {"flash_attention.forward": cfg.num_layers})}

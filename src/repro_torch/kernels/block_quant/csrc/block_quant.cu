@@ -139,6 +139,24 @@ extern "C" int bq_dequantize(const void* q, const void* scales, void* out, int o
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch bq_quantize makes for n_blocks blocks of x (x_bf16 selects the
+// instance), for trace capture to check its model against: out[0..2] the
+// grid, out[3] threads a CTA, out[4] dynamic shared memory bytes, out[5] the
+// CTAs an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int bq_quantize_launch(int x_bf16, long long n_blocks, int* out) {
+  const int threads = kWarpsPerCta * 32;
+  int per_sm = 0;
+  const cudaError_t err =
+      x_bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, quantize_kernel<__nv_bfloat16>, threads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quantize_kernel<float>,
+                                                             threads, 0);
+  const dim3 grid = grid_for(n_blocks);
+  out[0] = static_cast<int>(grid.x); out[1] = static_cast<int>(grid.y);
+  out[2] = static_cast<int>(grid.z); out[3] = threads; out[4] = 0; out[5] = per_sm;
+  return static_cast<int>(err);
+}
+
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

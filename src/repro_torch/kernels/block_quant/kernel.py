@@ -15,6 +15,7 @@ _SIGNATURES = {
                     ctypes.c_longlong, ctypes.c_void_p],
     "bq_dequantize": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_longlong, ctypes.c_void_p],
+    "bq_quantize_launch": [ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)],
 }
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -49,6 +50,14 @@ def quantize(x: torch.Tensor):
         runtime.check(lib, err, "block_quant.quantize")
         runtime.LAUNCHES["block_quant.quantize"] += 1
     return q, scales
+
+
+def quantize_launch(n_blocks: int, x_dtype: torch.dtype = torch.float32) -> dict:
+    """K1's launch for ``n_blocks`` blocks of ``x_dtype`` on the current card:
+    grid, threads, shared memory and the CTAs an SM holds."""
+    lib = runtime.load("block_quant", _SIGNATURES)
+    return runtime.launch_config(lib, "bq_quantize_launch", "block_quant.quantize",
+                                 int(x_dtype == torch.bfloat16), n_blocks)
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

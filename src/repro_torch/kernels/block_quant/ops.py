@@ -45,3 +45,43 @@ def wire_bytes(shape, dtype_bytes: int = 2, block: int = BLOCK) -> int:
     """Compressed wire size: int8 payload + f32 scale per block."""
     n = int(np.prod(shape))
     return n + 4 * (n // block)
+
+
+# K1's launch, as csrc/block_quant.cu sets it: one warp a 128-element block,
+# 8 warps (256 threads) a CTA; 8 CTAs an SM, which chip_smoke.py holds to the
+# card's occupancy query.  tests/test_torch_capture.py reads the constants
+# from the source.
+WARPS_PER_CTA = 8
+CTAS_PER_SM = 8
+
+
+def trace_geometry(*, r: int, c: int, variant: str = "quant"):
+    """Capture shim: K1's launch for an (R, C) f32 input as a
+    :class:`~repro_torch.capture.geometry.CtaGeometry`.  The kernel sees x,
+    q and the scales as flat arrays; grid ceil(R·C/128/8), one step a CTA:
+    it reads 8 contiguous 128-element blocks (1024 f32, clipped at the end)
+    and writes their 1 KiB of int8 codes and 8 f32 scales.  A step is 5·1024
+    FLOP at the f32 CUDA-core peak."""
+    from repro_torch.capture.geometry import CtaGeometry, CtaOperand
+
+    if c % BLOCK:
+        raise ValueError(f"C={c} must be a multiple of {BLOCK}")
+    n_blocks = r * c // BLOCK
+    per_cta = WARPS_PER_CTA * BLOCK
+    gx = -(-n_blocks // WARPS_PER_CTA)
+
+    def flat_map(cta, step):
+        return (cta[0],)
+
+    return CtaGeometry(
+        kernel="block_quant", variant=variant, grid=(gx, 1, 1),
+        threads=WARPS_PER_CTA * 32, ctas_per_sm=CTAS_PER_SM,
+        operands=(
+            CtaOperand("x", (r * c,), (per_cta,), flat_map, payload="f32_act_sparse"),
+            CtaOperand("q", (r * c,), (per_cta,), flat_map, elem_bytes=1, is_output=True,
+                       payload="int8_quant"),
+            CtaOperand("scales", (n_blocks,), (WARPS_PER_CTA,), flat_map, is_output=True,
+                       payload="f32_scales"),
+        ),
+        steps=(1,) * gx, flops_per_step=5.0 * per_cta, flop_unit="cuda",
+    )

@@ -770,6 +770,9 @@ bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads, int
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The bf16 launch's grid: one CTA per (128-row q tile, head, batch row).
+dim3 tc_grid(int Sq, int H, int B) { return dim3((Sq + kTcBQ - 1) / kTcBQ, H, B); }
+
 template <int D>
 cudaError_t launch_bf16(const Params& a, cudaStream_t stream) {
   TcParams p;
@@ -785,9 +788,26 @@ cudaError_t launch_bf16(const Params& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_forward_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.H, a.B);
-  flash_forward_wgmma_kernel<D><<<grid, kTcThreads, smem, stream>>>(p);
+  flash_forward_wgmma_kernel<D><<<tc_grid(a.Sq, a.H, a.B), kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// launch_bf16's configuration for trace capture: out[0..2] the grid, out[3]
+// threads a CTA, out[4] dynamic shared memory bytes, out[5] the CTAs an SM
+// holds at that shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <int D>
+cudaError_t launch_config_bf16(int B, int Sq, int H, int* out) {
+  const int smem = TcSmem<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_forward_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_forward_wgmma_kernel<D>,
+                                                      kTcThreads, smem);
+  const dim3 grid = tc_grid(Sq, H, B);
+  out[0] = static_cast<int>(grid.x); out[1] = static_cast<int>(grid.y);
+  out[2] = static_cast<int>(grid.z); out[3] = kTcThreads; out[4] = smem; out[5] = per_sm;
+  return err;
 }
 
 }  // namespace
@@ -826,6 +846,20 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
     case 80: return static_cast<int>(launch_bf16<80>(p, st));
     case 128: return static_cast<int>(launch_bf16<128>(p, st));
     case 160: return static_cast<int>(launch_bf16<160>(p, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch fa_forward makes for bf16 q (B, Sq, H, D), as launch_config_bf16
+// gives it.  Returns cudaErrorInvalidValue for a head_dim without an instance.
+extern "C" int fa_forward_bf16_launch(int B, int Sq, int H, int D, int* out) {
+  switch (D) {
+    case 16: return static_cast<int>(launch_config_bf16<16>(B, Sq, H, out));
+    case 32: return static_cast<int>(launch_config_bf16<32>(B, Sq, H, out));
+    case 64: return static_cast<int>(launch_config_bf16<64>(B, Sq, H, out));
+    case 80: return static_cast<int>(launch_config_bf16<80>(B, Sq, H, out));
+    case 128: return static_cast<int>(launch_config_bf16<128>(B, Sq, H, out));
+    case 160: return static_cast<int>(launch_config_bf16<160>(B, Sq, H, out));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

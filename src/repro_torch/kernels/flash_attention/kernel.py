@@ -17,6 +17,7 @@ _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _SIGNATURES = {
     "fa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, ctypes.c_float, _P],
+    "fa_forward_bf16_launch": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 
 
@@ -76,3 +77,13 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     runtime.check(lib, err, "flash_attention.forward")
     runtime.LAUNCHES["flash_attention.forward"] += 1
     return o
+
+
+def forward_bf16_launch(b: int, sq: int, h: int, d: int) -> dict:
+    """K3's bf16 (wgmma + TMA) launch for q (B, Sq, H, D) on the current card:
+    grid, threads, shared memory and the CTAs an SM holds."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    lib = runtime.load("flash_attention", _SIGNATURES)
+    return runtime.launch_config(lib, "fa_forward_bf16_launch", "flash_attention.forward",
+                                 b, sq, h, d)

@@ -323,17 +323,48 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(const __grid_constant__ 
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
+// One block per (64-channel block, batch row); the ring's shared memory.
+dim3 scan_grid(int D, int B) { return dim3((D + kCB - 1) / kCB, B); }
+template <typename TX, int N>
+constexpr int scan_smem() { return kStages * static_cast<int>(sizeof(Stage<TX, N>)); }
+
 template <typename TX, int N>
 cudaError_t launch(Args p, int B, cudaStream_t stream) {
   p.vec = p.D % (16 / static_cast<int>(sizeof(TX))) == 0 && aligned16(p.dt) && aligned16(p.x) &&
           aligned16(p.Bm) && aligned16(p.Cm) && aligned16(p.h_last);
-  constexpr int smem = kStages * static_cast<int>(sizeof(Stage<TX, N>));
+  constexpr int smem = scan_smem<TX, N>();
   const cudaError_t err =
       cudaFuncSetAttribute(scan_kernel<TX, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.D + kCB - 1) / kCB, B);
-  scan_kernel<TX, N><<<grid, kThreads, smem, stream>>>(p);
+  scan_kernel<TX, N><<<scan_grid(p.D, B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// launch's configuration for trace capture: out[0..2] the grid, out[3]
+// threads a block, out[4] dynamic shared memory bytes, out[5] the blocks an
+// SM holds at that shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <typename TX, int N>
+cudaError_t launch_config(int B, int D, int* out) {
+  constexpr int smem = scan_smem<TX, N>();
+  cudaError_t err =
+      cudaFuncSetAttribute(scan_kernel<TX, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<TX, N>, kThreads, smem);
+  const dim3 grid = scan_grid(D, B);
+  out[0] = static_cast<int>(grid.x); out[1] = static_cast<int>(grid.y);
+  out[2] = static_cast<int>(grid.z); out[3] = kThreads; out[4] = smem; out[5] = per_sm;
+  return err;
+}
+
+template <typename TX>
+cudaError_t dispatch_config(int N, int B, int D, int* out) {
+  switch (N) {
+    case 4: return launch_config<TX, 4>(B, D, out);
+    case 8: return launch_config<TX, 8>(B, D, out);
+    case 16: return launch_config<TX, 16>(B, D, out);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename TX>
@@ -361,6 +392,13 @@ extern "C" int ms_forward(const void* dt, const void* A, const void* Bm, const v
   const cudaError_t err = x_is_bf16 ? dispatch<__nv_bfloat16>(N, p, B, st)
                                     : dispatch<float>(N, p, B, st);
   return static_cast<int>(err);
+}
+
+// The launch ms_forward makes for (B, D, N) and x's type, as launch_config
+// gives it.  Returns cudaErrorInvalidValue for an N without an instance.
+extern "C" int ms_forward_launch(int x_is_bf16, int B, int D, int N, int* out) {
+  return static_cast<int>(x_is_bf16 ? dispatch_config<__nv_bfloat16>(N, B, D, out)
+                                    : dispatch_config<float>(N, B, D, out));
 }
 
 extern "C" const char* repro_error_string(int err) {

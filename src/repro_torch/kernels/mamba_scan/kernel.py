@@ -13,6 +13,7 @@ STATE_DIMS = (4, 8, 16)  # the kernel's template instances of N
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "ms_forward": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "ms_forward_launch": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 
 
@@ -63,3 +64,13 @@ def forward(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.T
     runtime.check(lib, err, "mamba_scan.forward")
     runtime.LAUNCHES["mamba_scan.forward"] += 1
     return y, h_last
+
+
+def forward_launch(b: int, d: int, n: int, x_dtype: torch.dtype = torch.float32) -> dict:
+    """K4's launch for (B, D, N) and x of ``x_dtype`` on the current card:
+    grid, threads, shared memory and the CTAs an SM holds."""
+    if n not in STATE_DIMS:
+        raise ValueError(f"state dim N={n} not in the kernel's {STATE_DIMS}")
+    lib = runtime.load("mamba_scan", _SIGNATURES)
+    return runtime.launch_config(lib, "ms_forward_launch", "mamba_scan.forward",
+                                 int(x_dtype == torch.bfloat16), b, d, n)

@@ -123,6 +123,17 @@ def forward_only(kernel: str, *inputs) -> None:
         )
 
 
+def launch_config(lib: ctypes.CDLL, fn: str, kernel: str, *args) -> Dict[str, object]:
+    """What the launch query ``fn`` of ``lib`` reports for ``args``: the grid
+    the launcher would use, its threads a CTA and dynamic shared memory, and
+    the CTAs an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current card).  Trace capture holds its model of the launch to it."""
+    out = (ctypes.c_int * 6)()
+    check(lib, getattr(lib, fn)(*args, out), kernel)
+    return {"grid": tuple(out[:3]), "threads": out[3], "smem_bytes": out[4],
+            "ctas_per_sm": out[5]}
+
+
 def check(lib: ctypes.CDLL, err: int, kernel: str) -> None:
     """Raise if the launcher's ``cudaGetLastError()`` was not ``cudaSuccess``."""
     if err != 0:
