@@ -75,35 +75,45 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               copy weights), K3 and K4 never; falling losses, a live residual,
               a working copy equal to the plain int8 round trip, and the fold
               of one more step's gradients equal to the plain fold;
- 19. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
+ 19. sharded  the same model and steps on a mesh: one NCCL process group of
+              world size 1, make_mesh((1, 1)), parameters, master, moments
+              and residual as DTensors laid out by base_rules(fsdp=True),
+              3 DAEMON_AGGRESSIVE steps at B = 2 x 4096 (K1 = K2 = 18 a
+              step, fed their rank-local blocks), then serve_config at the
+              serve phase's shape on that mesh (K3 once a layer, on the
+              rank's local heads): the losses within LOSS_RTOL of
+              train_step's first three and the prefill logits within
+              LOGIT_TOL of serve's, step_s, prefill_s and peak memory beside
+              theirs;
+ 20. train_hybrid the same for zamba2-1.2b at full width and depth: K1 = K2 =
               20 a step (16 folded gradients, 4 working-copy weights);
- 20. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
+ 21. train_ssm  the same for falcon-mamba-7b at full width, cut to its first 8
               of 64 layers (the whole model's training state, ~131 GB, does
               not fit the card): K1 = K2 = 12 a step (9 + 3), the chunked
               scan in training, K4 never;
- 21. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
+ 22. train_moe  the same for deepseek-v2-lite-16b at full width, cut to its
               first 4 of 27 layers (the dense layer and 3 MoE layers; the
               whole model's state, ~314 GB, does not fit): K1 = K2 = 38 a
               step (23 + 15), the first batch's cross-entropy lowered;
- 22. train_audio the same for whisper-base at full width and depth, batch 16
+ 23. train_audio the same for whisper-base at full width and depth, batch 16
               x 1024 with zero frames: K1 = K2 = 42 a step (24 + 18);
- 23. collectives  the DaeMon collectives on one process group of world size 1
+ 24. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
               chunked all-gathers of its 7 stacked weights; K1/K2 must launch
               inside them, and the results must equal the same calls on CPU
               copies (gloo, plain versions) bit for bit; timed, with the wire
               bytes int8 against f32;
- 24. checkpoint  save_async's host snapshot of full-width danube's (params,
+ 25. checkpoint  save_async's host snapshot of full-width danube's (params,
               DaemonState), timed; reduced danube's state after 2 card train
               steps serialised and restored onto the card bit for bit; save
               without zstandard raising before it writes;
- 25. train    train("h2o-danube-1.8b", reduced=False, steps=3,
+ 26. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
               DAEMON_DEFAULT and so launches no kernel;
- 26. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
+ 27. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 27. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
+ 28. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
               deepseek, dbrx, whisper, internvl2) on the card against the
               plain path on the CPU, and 3 DAEMON_AGGRESSIVE train steps each
               of reduced danube, zamba2, falcon-mamba, deepseek, whisper and
@@ -111,7 +121,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the card as on the CPU;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (5-23, 25) and read just after; launches made to compare a
+main-path phase (5-24, 26) and read just after; launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -122,6 +132,7 @@ import dataclasses
 import gc
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -176,6 +187,8 @@ BATCH, PROMPT, GEN = 2, 8192, 16
 TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
 TRAIN_STEPS = 4  # timed, then one more under the profiler
 LOSS_RTOL = 1e-3  # tests/test_torch_train.py's loss tolerance (card vs CPU here)
+LOGIT_TOL = 8e-2  # tests/test_torch_serve.py's logit tolerance (sharded vs one device here)
+SHARDED_MESH, SHARDED_STEPS = (1, 1), 3  # the sharded phase: one card holds one rank
 PROB_TOL = 2e-2  # tests/test_torch_moe.py's: the MoE router's probabilities, card vs CPU
 SEED = 0
 
@@ -903,6 +916,10 @@ def run_capture(torch):
 # --------------------------------------------------------------------------
 
 
+# each one-device phase's numbers that the sharded phase is held to
+UNSHARDED: dict = {}
+
+
 def run_serve(torch, runtime, phase, cfg, want, batch=BATCH, prompt=PROMPT, peak_gb=None):
     """serve_config(cfg) (serve(arch)'s body) with random weights; each kernel
     in ``want`` must launch as many times as it says, the tokens must lie in
@@ -913,10 +930,13 @@ def run_serve(torch, runtime, phase, cfg, want, batch=BATCH, prompt=PROMPT, peak
     runtime.reset_launches()
     t0 = time.perf_counter()
     r = serve_config(cfg, batch=batch, prompt_len=prompt, gen_tokens=GEN, movement="daemon",
-                     seed=SEED)
+                     seed=SEED, return_logits=True)
     wall = time.perf_counter() - t0
     launches = dict(runtime.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    UNSHARDED[phase] = {"logits": r["logits"], "tokens": r["tokens"], "launches": launches,
+                        "prefill_s": r["prefill_s"], "peak_memory_gb": peak,
+                        "decode_s_per_token": r["decode_s_per_token"]}
     emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch, prompt_len=prompt,
          gen_tokens=GEN, prefill_s=r["prefill_s"], decode_s_per_token=r["decode_s_per_token"],
          tokens_per_s=r["tokens_per_s"], wall_s=wall, peak_memory_gb=peak, launches=launches)
@@ -1374,6 +1394,8 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
 
     tokens = batch_size * seq
     step_s = statistics.median(times[1:])
+    UNSHARDED[phase] = {"losses": losses[:TRAIN_STEPS], "step_s": step_s,
+                        "peak_memory_gb": peak_gb}
     flop = train_flop(cfg, batch_size, seq)
     ops, spans = prof.pop("device_ms_by_op"), prof.pop("device_span_ms_by_range")
     breakdown = {
@@ -1611,6 +1633,122 @@ def run_collectives(torch, runtime, cfg):
         store.unlink(missing_ok=True)
     free_memory(torch)
     return launches
+
+
+def run_sharded(torch, runtime, cfg):
+    """The main paths on a mesh: the train_step phase's DaeMon step and the
+    serve phase's serving, on one NCCL process group of world size 1 and
+    ``make_mesh((1, 1))``.  One card holds one rank, so this phase covers the
+    sharded code path on the card (DTensor state laid out by
+    ``base_rules(fsdp=True)``, K1/K2 fed rank-local blocks, K3 the rank's
+    local heads, the cache laid out by ``cache_sharding``); parity between
+    ranks is the CPU tests' and ``tools/sharded_ranks.py``'s.  The losses are
+    held to train_step's first three within LOSS_RTOL and the prefill logits
+    to serve's within LOGIT_TOL (both from the same seed and batches; equal
+    bits are reported, not required)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import movement as mv
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+    from repro_torch.runtime import sharding as shd
+
+    # DTensor warns on each redistribution over several mesh dims
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dev = torch.device("cuda")
+    store = ROOT / "build" / f"chip_smoke_pg_sharded.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    want = {"block_quant.quantize": 18, "block_quant.dequantize": 18,
+            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    total = dict.fromkeys(runtime.LAUNCHES, 0)
+    losses, times, per_step = [], [], []
+    try:
+        mesh = make_mesh(SHARDED_MESH, device=dev)
+        rules = shd.base_rules(mesh, fsdp=True)
+        shd.activate(mesh, rules)
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=BATCH, seed=SEED))
+        try:
+            specs = M.model_specs(cfg)
+            master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+            master = shd.place_tree(master, shd.sharding_for_specs(mesh, rules, specs))
+            state = mv.init_state(master)
+            params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
+            del master
+            step = steps.make_train_step(cfg, total_steps=TRAIN_STEPS, movement="daemon",
+                                         movement_cfg=mv.DAEMON_AGGRESSIVE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(SHARDED_STEPS):
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
+                batch = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
+                runtime.reset_launches()
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, batch)
+                losses.append(float(metrics["loss"]))  # waits for the step
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                per_step.append(dict(runtime.LAUNCHES))
+                for k in total:
+                    total[k] += runtime.LAUNCHES[k]
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            sharded_state = all(nn.is_dtensor(x) for tree in (state.master, state.adam.m,
+                                                             state.adam.v, state.residual)
+                                for x in nn.tree_leaves(tree))
+            del params, state
+        finally:
+            pipe.close()
+            shd.deactivate()
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        r = serve_config(cfg, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
+                         movement="daemon", mesh_shape=SHARDED_MESH, seed=SEED, device=dev,
+                         return_logits=True)
+        serve_launches = dict(runtime.LAUNCHES)
+        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+        for k in total:
+            total[k] += serve_launches[k]
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    ref, ref_serve = UNSHARDED["train_step"], UNSHARDED["serve"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    logit_err = float((r["logits"] - ref_serve["logits"]).abs().max())
+    step_s = statistics.median(times[1:])
+    emit("sharded", arch=cfg.name, mesh=list(SHARDED_MESH), batch=BATCH, seq_len=TRAIN_SEQ,
+         movement="daemon (DAEMON_AGGRESSIVE)", steps=SHARDED_STEPS, losses=losses,
+         unsharded_losses=ref["losses"][:SHARDED_STEPS], loss_max_rel=rel,
+         losses_bit_equal=losses == ref["losses"][:SHARDED_STEPS],
+         step_s=step_s, step_s_each=times, unsharded_step_s=ref["step_s"],
+         step_s_over_unsharded=step_s / ref["step_s"], peak_memory_gb=peak_gb,
+         unsharded_peak_memory_gb=ref["peak_memory_gb"], launches_per_step=per_step,
+         state_as_dtensors=sharded_state,
+         serve_prompt_len=PROMPT, serve_batch=BATCH, logits_max_abs_err=logit_err,
+         tokens_equal=bool((r["tokens"] == ref_serve["tokens"]).all()),
+         prefill_s=r["prefill_s"], unsharded_prefill_s=ref_serve["prefill_s"],
+         decode_s_per_token=r["decode_s_per_token"],
+         unsharded_decode_s_per_token=ref_serve["decode_s_per_token"],
+         serve_peak_memory_gb=serve_peak,
+         unsharded_serve_peak_memory_gb=ref_serve["peak_memory_gb"],
+         serve_launches=serve_launches, nvidia_smi=nvidia_smi())
+    require(sharded_state, "sharded: the training state is not held as DTensors")
+    require(rel <= LOSS_RTOL, f"sharded: losses {losses} vs unsharded {ref['losses']}")
+    require(logit_err <= LOGIT_TOL, f"sharded: prefill logits {logit_err} off the unsharded")
+    for i, launches in enumerate(per_step):
+        require(launches == want, f"sharded step {i}: launches {launches}, not {want}")
+    require(serve_launches == ref_serve["launches"],
+            f"sharded serve: launches {serve_launches}, not {ref_serve['launches']}")
+    free_memory(torch)
+    return total
 
 
 def _host_available_bytes() -> int:
@@ -2023,6 +2161,7 @@ def main() -> int:
     per_phase["profile_vlm"] = run_serving_profile(torch, runtime, "profile_vlm", vlm_cut, BATCH,
                                                    PROMPT)
     per_phase["train_step"] = run_train_step(torch, runtime, cfg, "train_step", (11, 7))
+    per_phase["sharded"] = run_sharded(torch, runtime, cfg)
     per_phase["train_hybrid"] = run_train_step(torch, runtime, hybrid_cfg, "train_hybrid", (16, 4))
     per_phase["train_ssm"] = run_train_step(
         torch, runtime, dataclasses.replace(ssm_cfg, num_layers=SSM_TRAIN_LAYERS), "train_ssm",

@@ -26,7 +26,16 @@ host memory on the caller's thread, which decouples the checkpoint from the
 train step (the port's step updates the master and the moments in place),
 then serialises, compresses and writes on a background thread; ``wait``
 re-raises that thread's error.  ``restore`` places each leaf on the device
-and dtype of the matching leaf of ``like``.  ``zstandard`` is optional:
+and dtype of the matching leaf of ``like``.
+
+On a mesh (a process group of several ranks, leaves as DTensors) the format
+is the same global arrays: ``save``/``save_async`` gather each sharded leaf
+on the calling thread, on every rank (a collective they all enter); only
+rank 0 writes, and every rank passes a barrier once the step is published
+(in ``save``, or in the ``wait`` that follows ``save_async``).
+``restore(..., shardings=)`` lays each global array out by its sharding
+(``runtime.sharding.NamedSharding``): that is the elastic re-shard, a run
+saved on one mesh resuming on another.  ``zstandard`` is optional:
 without it, a save or a restore raises ``ImportError`` before it touches the
 filesystem, never at import.
 """
@@ -44,6 +53,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.models.nn import is_dtensor
+from repro_torch.runtime.sharding import place, place_as, to_global
 
 try:
     import zstandard
@@ -84,7 +97,10 @@ def _items(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
 
 def _host(leaf: Any) -> np.ndarray:
     """A host copy of one leaf (never a view: the caller may write the leaf
-    in place afterwards); bfloat16 as its bit patterns in ``V2``."""
+    in place afterwards), the whole of a DTensor; bfloat16 as its bit
+    patterns in ``V2``."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = to_global(leaf.detach())
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy().view(_BF16_STORED)
@@ -121,15 +137,29 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, order="C"))
 
 
-def unflatten_into(like: Any, flat: Dict[str, np.ndarray], dtypes: Dict[str, str]) -> Any:
+def _rank0() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def unflatten_into(like: Any, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
+                   shardings: Any = None) -> Any:
     """A tree of ``like``'s structure holding the arrays of ``flat`` (manifest
     dtypes ``dtypes``), each on the device and in the dtype of ``like``'s
-    leaf at the same key."""
+    leaf at the same key, and laid out by ``shardings`` (a tree of
+    ``like``'s structure; a ``None`` leaf or subtree keeps the array whole),
+    else as ``like``'s leaf if that is a DTensor."""
 
-    def build(t: Any, path: Tuple[str, ...]) -> Any:
+    def build(t: Any, sh: Any, path: Tuple[str, ...]) -> Any:
         children = _children(t)
         if children is not None:
-            built = [build(child, path + (part,)) for part, child in children]
+            sh_children = [None] * len(children) if sh is None else [c for _, c in _children(sh)]
+            built = [build(child, c_sh, path + (part,))
+                     for (part, child), c_sh in zip(children, sh_children)]
             if isinstance(t, dict):
                 return dict(zip(sorted(t), built))
             return type(t)(*built) if _is_namedtuple(t) else type(t)(built)
@@ -141,9 +171,14 @@ def unflatten_into(like: Any, flat: Dict[str, np.ndarray], dtypes: Dict[str, str
         v = flat[key]
         if tuple(v.shape) != tuple(t.shape):
             raise ValueError(f"{key}: checkpoint shape {v.shape} != expected {tuple(t.shape)}")
-        return _tensor(v, dtypes[key]).to(device=t.device, dtype=t.dtype)
+        x = _tensor(v, dtypes[key]).to(device=t.device, dtype=t.dtype)
+        if sh is not None:
+            return place(x, sh)
+        if isinstance(t, torch.Tensor) and is_dtensor(t):
+            return place_as(x, t.device_mesh, t.placements)
+        return x
 
-    return build(like, ())
+    return build(like, shardings, ())
 
 
 class CheckpointManager:
@@ -153,6 +188,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False  # a save_async whose barrier wait() still owes
 
     # ---------------- save ----------------
     def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict) -> Path:
@@ -182,12 +218,23 @@ class CheckpointManager:
             shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> Path:
-        return self._write(step, flatten(tree), extra or {})
+        flat = flatten(tree)
+        final = self.dir / f"step_{step:08d}"
+        try:
+            if _rank0():
+                final = self._write(step, flat, extra or {})
+        finally:
+            _barrier()
+        return final
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
-        """Snapshot to host now; compress+write on a background thread."""
+        """Snapshot to host now; compress+write on a background thread (rank
+        0's; the others only gather)."""
         self.wait()
         flat = flatten(tree)  # host copy (decouples from in-place updates)
+        self._pending = True
+        if not _rank0():
+            return
 
         def work():
             try:
@@ -202,6 +249,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -218,9 +268,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], like: Any) -> Tuple[Any, Dict]:
+    def restore(self, step: Optional[int], like: Any, *,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like``: each leaf on the device
-        and in the dtype of ``like``'s leaf at the same key."""
+        and in the dtype of ``like``'s leaf at the same key, laid out by
+        ``shardings`` if given (the elastic re-shard: the stored global
+        arrays are laid out for whatever mesh the caller runs now)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -234,4 +287,4 @@ class CheckpointManager:
             raise ImportError("checkpoint load requires the 'zstandard' package")
         flat = deserialize(zstandard.ZstdDecompressor().decompress(payload))
         dtypes = {k: a["dtype"] for k, a in manifest["arrays"].items()}
-        return unflatten_into(like, flat, dtypes), manifest["extra"]
+        return unflatten_into(like, flat, dtypes, shardings), manifest["extra"]

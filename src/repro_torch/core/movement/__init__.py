@@ -5,9 +5,11 @@ from repro_torch.core.movement.collectives import (
 )
 from repro_torch.core.movement.daemon_step import (
     DaemonState,
+    init_abstract,
     init_state,
     init_working_copy,
     make_daemon_train_step,
+    state_shardings,
     working_copy,
 )
 from repro_torch.core.movement.engine import (
@@ -20,8 +22,8 @@ from repro_torch.core.movement.engine import (
 
 __all__ = [
     "chunked_all_gather", "compressed_all_gather", "compressed_grad_sync",
-    "DaemonState", "init_state", "init_working_copy", "make_daemon_train_step",
-    "working_copy",
+    "DaemonState", "init_abstract", "init_state", "init_working_copy", "make_daemon_train_step",
+    "state_shardings", "working_copy",
     "BASELINE", "DAEMON_AGGRESSIVE", "DAEMON_DEFAULT", "MovementConfig",
     "SelectionUnit",
 ]

@@ -14,8 +14,16 @@ compression, on one device.
 
 JAX's step is a pure function over donated buffers; here the fold, the
 AdamW update and the new working copy run under ``torch.no_grad()`` and
-write the residual, the moments and the master in place.  The collectives of
-a sharded step (``collectives.py``) vanish on one device, as GSPMD's do.
+write the residual, the moments and the master in place.
+
+On a mesh (``runtime/sharding.py``) the master, moments and residual are
+DTensors laid out as the parameters.  Whether a leaf is page class or
+foldable is decided on its global shape, as JAX decides it; K1/K2 are fed
+rank-local blocks: a shard whose last dim the 128-blocks tile from a block
+boundary is quantised where it lies, any other is first laid out so that its
+last dim is whole on every rank (``block_layout``), quantised there, and
+placed back, as GSPMD does around the Pallas call.  The codes, scales and
+residual are then the one-device run's.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core.movement.engine import DAEMON_DEFAULT, MovementConfig
 from repro_torch.kernels.block_quant import ops as bq
 from repro_torch.models import nn
 from repro_torch.optim import adamw
+from repro_torch.runtime.sharding import contiguous_stride
 
 
 class DaemonState(NamedTuple):
@@ -49,11 +58,63 @@ def is_foldable(shape: tuple[int, ...]) -> bool:
     return len(shape) >= 2 and shape[-1] % 128 == 0
 
 
+def block_layout(x) -> tuple:
+    """Placements of the DTensor ``x`` under which every rank holds whole
+    128-blocks of the last dim: ``x``'s own where its last-dim shards are
+    block multiples, else each mesh dim that splits the last dim moved to the
+    first leading dim it divides, or to ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl, last = x.device_mesh, list(x.placements), x.ndim - 1
+    on_last = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == last]
+    n_last = 1
+    for i in on_last:
+        n_last *= mesh.size(i)
+    if (x.shape[-1] // n_last) % bq.BLOCK == 0:
+        return tuple(pl)
+    for i in on_last:
+        pl[i] = Replicate()
+        for d in range(last):
+            split = mesh.size(i)
+            for j, p in enumerate(pl):
+                if isinstance(p, Shard) and p.dim == d:
+                    split *= mesh.size(j)
+            if x.shape[d] % split == 0:
+                pl[i] = Shard(d)
+                break
+    return tuple(pl)
+
+
+def _on_blocks(fn: Callable, x: torch.Tensor):
+    """``fn`` applied to the rank-local blocks of the DTensor ``x`` laid out
+    by :func:`block_layout`; its outputs (of the local shape) come back as
+    DTensors in ``x``'s placements."""
+    from torch.distributed.tensor import DTensor
+
+    lay = block_layout(x)
+    xl = x.redistribute(x.device_mesh, lay) if lay != tuple(x.placements) else x
+    outs = fn(xl.to_local())
+    back = []
+    for o in outs:
+        d = DTensor.from_local(o, x.device_mesh, lay, run_check=False, shape=x.shape,
+                               stride=contiguous_stride(x.shape))
+        back.append(d.redistribute(x.device_mesh, x.placements) if lay != tuple(x.placements)
+                    else d)
+    return back
+
+
+def _int8_roundtrip(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    q, s = bq.quantize(x)
+    return bq.dequantize(q, s, dtype)
+
+
 def _copy_leaf(p: torch.Tensor, cfg_mv: MovementConfig) -> torch.Tensor:
     if cfg_mv.expert_weights == "int8" and is_page_class(tuple(p.shape)):
         # page-class tensors (stacked expert/layer weights): int8 wire
-        q, s = bq.quantize(p.to(torch.float32))
-        return bq.dequantize(q, s, torch.bfloat16)
+        if nn.is_dtensor(p):
+            return _on_blocks(lambda x: (_int8_roundtrip(x.to(torch.float32), torch.bfloat16),),
+                              p)[0]
+        return _int8_roundtrip(p.to(torch.float32), torch.bfloat16)
     return p.to(torch.bfloat16)
 
 
@@ -77,8 +138,27 @@ def init_state(master: Any) -> DaemonState:
     return DaemonState(
         adam=adamw.init(master),
         master=master,
-        residual=nn.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), master),
+        residual=nn.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), master),
+    )
+
+
+def init_abstract(master: Any) -> DaemonState:
+    """The shapes and dtypes of ``init_state(master)``'s leaves."""
+    LeafShape = adamw.LeafShape
+    res = nn.tree_map(lambda p: LeafShape(tuple(p.shape), torch.float32), master)
+    return DaemonState(adam=adamw.init_abstract(master),
+                       master=nn.tree_map(lambda p: LeafShape(tuple(p.shape), p.dtype), master),
+                       residual=res)
+
+
+def state_shardings(psh: Any, replicated=None) -> DaemonState:
+    """Sharding tree matching :func:`init_abstract` (``psh``: the parameters'
+    shardings).  The step count is ``replicated``: ``None`` keeps it a plain
+    tensor, the same on every rank."""
+    return DaemonState(
+        adam=adamw.AdamWState(replicated, psh, psh),
+        master=psh,
+        residual=psh,
     )
 
 
@@ -88,6 +168,14 @@ def fold(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     Returns the f32 gradient that arrived."""
     g32 = g.to(torch.float32) + r
     if is_foldable(tuple(g32.shape)):
+        if nn.is_dtensor(g32):
+            def local(x):
+                deq = _int8_roundtrip(x, torch.float32)
+                return deq, x - deq
+
+            deq, res = _on_blocks(local, g32)
+            r.to_local().copy_(res.to_local())
+            return deq
         q, s = bq.quantize(g32)
         deq = bq.dequantize(q, s, torch.float32)
         torch.sub(g32, deq, out=r)

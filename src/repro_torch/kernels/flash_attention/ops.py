@@ -15,11 +15,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, D) in q's dtype.
     Forward only on the card, as the Pallas kernel is: a CUDA call that
     autograd would have to differentiate raises (training attends through
-    ``models.nn.attention``)."""
+    ``models.nn.attention``).  DTensors (a sharded model) are attended on
+    each rank's local batch rows and q heads (:func:`_sharded`)."""
+    from repro_torch.models.nn import is_dtensor
+
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal=causal, window=window)
     if q.is_cuda:
         runtime.forward_only("flash_attention (K3)", q, k, v)
         return kernel.forward(q, k, v, causal=causal, window=window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _sharded(q, k, v, *, causal: bool, window: int):
+    """K3 on DTensors: each rank calls the kernel on its local batch rows and
+    q heads, with the KV heads they read (``runtime.sharding.head_shards``)."""
+    from repro_torch.runtime.sharding import head_shards
+
+    ql, kl, vl, wrap = head_shards(q, k, v)
+    return wrap(flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                causal=causal, window=window))
 
 
 # K3's bf16 launch (flash_forward_wgmma_kernel<D>), as csrc/flash_attention.cu

@@ -15,11 +15,42 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: 
     """dt, x: (B, S, D); a: (D, N); bmat, cmat: (B, S, N) ->
     (y (B, S, D) f32, h_last (B, D, N) f32).  Forward only on the card, as
     the Pallas kernel is: a CUDA call that autograd would have to
-    differentiate raises."""
+    differentiate raises.  DTensors (a sharded model) are scanned on each
+    rank's local batch rows and channels (:func:`_sharded`)."""
+    from repro_torch.models.nn import is_dtensor
+
+    if is_dtensor(dt):
+        return _sharded(dt, a, bmat, cmat, x)
     if dt.is_cuda:
         runtime.forward_only("selective_scan (K4)", dt, a, bmat, cmat, x)
         return kernel.forward(dt, a, bmat, cmat, x)
     return ref.selective_scan_ref(dt, a, bmat, cmat, x)
+
+
+def _sharded(dt, a, bmat, cmat, x):
+    """K4 on DTensors: dt and x keep their batch (dim 0) and channel (dim 2)
+    shards, A is split over its channels as they are, B and C keep only the
+    batch shards; each rank scans its local rows and channels."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.runtime.sharding import with_placements
+
+    mesh = dt.device_mesh
+    xpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                for p in dt.placements)
+    apl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xpl)
+    bpl = tuple(p if p == Shard(0) else Replicate() for p in xpl)
+    hpl = tuple(Shard(1) if p == Shard(2) else p for p in xpl)
+    dt, x = with_placements(dt, mesh, xpl), with_placements(x, mesh, xpl)
+    a = with_placements(a, mesh, apl)
+    bmat, cmat = with_placements(bmat, mesh, bpl), with_placements(cmat, mesh, bpl)
+    y, h = selective_scan(*(t.to_local().contiguous() for t in (dt, a, bmat, cmat, x)))
+    b, s, d = dt.shape
+    n = a.shape[1]
+    return (DTensor.from_local(y, mesh, xpl, run_check=False, shape=(b, s, d),
+                               stride=(s * d, d, 1)),
+            DTensor.from_local(h, mesh, hpl, run_check=False, shape=(b, d, n),
+                               stride=(d * n, n, 1)))
 
 
 # K4's launch, as csrc/mamba_scan.cu sets it: 128 threads, two lanes a

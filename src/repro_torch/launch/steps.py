@@ -38,12 +38,45 @@ def auto_microbatches(cfg: ModelConfig, seq_len: int, global_batch: int, n_dp: i
     return k
 
 
+def dp_degree(mesh) -> int:
+    """The data-parallel degree of ``mesh`` (a ``DeviceMesh`` or
+    ``MeshShape``): its size over the ``model`` axis, as JAX's dry run passes
+    ``n_dp`` to :func:`auto_microbatches`."""
+    from repro_torch.launch.mesh import axis_names, axis_size
+
+    names = axis_names(mesh)
+    n = 1
+    for a in names:
+        n *= axis_size(mesh, a)
+    return n // (axis_size(mesh, "model") if "model" in names else 1)
+
+
+def _split_microbatches(x: torch.Tensor, k: int) -> list:
+    """``x``'s k microbatches along dim 0.  A DTensor batch (sharded on dim 0)
+    splits each rank's local rows, so every microbatch stays sharded as the
+    batch: the microbatches hold other rows than on one device, and their
+    mean is the same."""
+    if nn.is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+
+        parts = x.to_local().reshape(k, -1, *x.shape[1:])
+        return [DTensor.from_local(p, x.device_mesh, x.placements, run_check=False)
+                for p in parts]
+    return list(x.reshape(k, x.shape[0] // k, *x.shape[1:]))
+
+
 def _value_and_grad(cfg: ModelConfig, params, batch):
-    """(grads in the parameters' dtypes, metrics) of ``M.loss_fn``."""
+    """(grads in the parameters' dtypes, metrics) of ``M.loss_fn``.  On a
+    mesh each gradient is laid out as its parameter (the data-parallel
+    reduction) and the metrics are plain tensors, the same on every rank."""
     leaves = [p.detach().requires_grad_() for p in nn.tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), nn.mesh_context():
         loss, metrics = M.loss_fn(cfg, nn.tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    if nn.is_dtensor(loss):
+        with torch.no_grad():
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
+        metrics = {k: v.full_tensor() if nn.is_dtensor(v) else v for k, v in metrics.items()}
     return nn.tree_unflatten(params, list(grads)), metrics
 
 
@@ -54,9 +87,8 @@ def _microbatched_grads(cfg: ModelConfig, params, batch, k: int):
     if k <= 1:
         return _value_and_grad(cfg, params, batch)
 
-    mb = {key: x.reshape(k, x.shape[0] // k, *x.shape[1:]) for key, x in batch.items()}
-    g_sum = nn.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                        params)
+    mb = {key: _split_microbatches(x, k) for key, x in batch.items()}
+    g_sum = nn.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     loss_sum = torch.zeros((), dtype=torch.float32, device=nn.tree_leaves(params)[0].device)
     for i in range(k):
         grads, metrics = _value_and_grad(cfg, params, {key: x[i] for key, x in mb.items()})
@@ -102,7 +134,8 @@ def make_train_step(
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def prefill_step(params, batch):
-        return M.prefill(cfg, params, batch)
+        with nn.mesh_context():
+            return M.prefill(cfg, params, batch)
 
     return prefill_step
 
@@ -110,7 +143,10 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 def make_decode_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def decode_step(params, cache, token, pos: int):
-        logits, cache = M.decode_step(cfg, params, cache, token, pos)
+        with nn.mesh_context():
+            logits, cache = M.decode_step(cfg, params, cache, token, pos)
+        if nn.is_dtensor(logits):  # (B, V): gathered whole on every rank
+            logits = logits.full_tensor()
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, cache
 

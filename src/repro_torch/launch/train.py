@@ -1,4 +1,5 @@
-"""Training entry point (port of ``repro.launch.train``), on one device.
+"""Training entry point (port of ``repro.launch.train``), on one device or
+sharded over a mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --batch 2 --seq 4096 --steps 3 --movement daemon
@@ -14,12 +15,20 @@ Every family trains: dense, MoE (deepseek-v2-lite with MLA, dbrx), SSM
 (internvl2: zero patch embeddings in front of each batch) and enc-dec
 (whisper: zero frames of ``seq_len``), as JAX's driver feeds them.
 
-Wires together: config -> data pipeline -> (baseline | daemon) train step ->
-async checkpointing -> supervisor (heartbeat + straggler policy) ->
-restart from the latest checkpoint.  Runs on the card unless ``--device cpu``
-is given.  Checkpoints are in the JAX package's format, and a daemon run
-(bf16 working copy) resumes.  Device meshes are not ported yet and raise
-(ROADMAP Queue 1 item 15).
+Wires together: config -> mesh/shardings -> data pipeline -> (baseline |
+daemon) train step -> async checkpointing -> supervisor (heartbeat +
+straggler policy) -> restart from the latest checkpoint.  Runs on the card
+unless ``--device cpu`` is given.  Checkpoints are in the JAX package's
+format, and a daemon run (bf16 working copy) resumes.
+
+``mesh_shape=None`` trains on one device.  A shape, such as ``(2, 2)`` for
+(data, model), shards the run over an initialised process group of that
+many ranks, one a device (``launch.mesh.make_mesh`` raises without one):
+parameters, master, moments and residual are DTensors laid out by
+``runtime.sharding.base_rules(mesh, fsdp=True)``, and every rank draws the
+same global batch from the pipeline and keeps its rows.  Launch one process
+a rank with ``torch.distributed`` initialised, as ``tools/sharded_ranks.py``
+does.
 """
 from __future__ import annotations
 
@@ -35,9 +44,11 @@ from repro_torch.configs import get_config
 from repro_torch.core import movement as mv
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_mesh, parse_shape
 from repro_torch.models import model as M
 from repro_torch.models import nn
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.fault import HeartbeatMonitor, RunSupervisor, StragglerPolicy
 
 
@@ -58,19 +69,44 @@ def train(
     log_every: int = 10,
     seed: int = 0,
     device=None,
+    init=None,
 ):
-    """-> (params, state, losses), as JAX's ``train``."""
+    """-> (params, state, losses), as JAX's ``train``.  On a mesh the
+    returned trees hold DTensors and the losses are global.  ``init``, if
+    given, is the initial master: a tree of global tensors with the specs'
+    keys and shapes (for example JAX-initialised weights through
+    ``repro_torch.convert``), in place of the draw from ``seed``."""
     dev = devices.resolve(device)
-    if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh {mesh_shape}: the port trains on one device until ROADMAP Queue 1 item 15 "
-            "(sharding)"
-        )
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    mesh = rules = None
+    if mesh_shape is not None:
+        mesh = make_mesh(tuple(mesh_shape), device=dev)
+        rules = shd.base_rules(mesh, fsdp=True)
+        shd.activate(mesh, rules)
+    try:
+        return _train(cfg, arch, mesh, rules, steps=steps, global_batch=global_batch,
+                      seq_len=seq_len, movement=movement, peak_lr=peak_lr,
+                      ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
+                      num_microbatches=num_microbatches, log_every=log_every, seed=seed,
+                      dev=dev, init=init)
+    finally:
+        if mesh is not None:
+            shd.deactivate()
+
+
+def _train(cfg, arch, mesh, rules, *, steps, global_batch, seq_len, movement, peak_lr, ckpt_dir,
+           ckpt_every, resume, num_microbatches, log_every, seed, dev, init):
     specs = M.model_specs(cfg)
-    master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev)
+    if init is None:
+        master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(seed), dev)
+    else:
+        master = nn.tree_map(lambda x: x.to(device=dev, dtype=torch.float32, copy=True), init)
+    psh = None
+    if mesh is not None:
+        psh = shd.sharding_for_specs(mesh, rules, specs)
+        master = shd.place_tree(master, psh)
 
     step_fn = steps_lib.make_train_step(
         cfg, peak_lr=peak_lr, total_steps=steps, movement=movement,
@@ -79,14 +115,17 @@ def train(
     if movement == "daemon":
         state = mv.init_state(master)
         params = mv.working_copy(master, mv.DAEMON_DEFAULT)
+        ssh = mv.state_shardings(psh)
     else:
         state = adamw.init(master)
         params = master
+        ssh = adamw.AdamWState(None, psh, psh)
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if mgr and resume and mgr.latest_step() is not None:
-        (params, state), extra = mgr.restore(None, (params, state))
+        shardings = None if mesh is None else (psh, ssh)
+        (params, state), extra = mgr.restore(None, (params, state), shardings=shardings)
         start_step = int(extra.get("step", 0))
         print(f"resumed from step {start_step}")
 
@@ -97,8 +136,9 @@ def train(
         ),
         start_step=start_step,
     )
+    n_hosts = 1 if mesh is None else mesh.size()
     supervisor = RunSupervisor(
-        hosts=[0],
+        hosts=list(range(n_hosts)),
         monitor=HeartbeatMonitor(interval_s=60),
         policy=StragglerPolicy(),
     )
@@ -109,6 +149,8 @@ def train(
         for i, host_batch in zip(range(start_step, steps), pipe):
             batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
             batch.update(M.stub_inputs(cfg, batch["tokens"]))
+            if mesh is not None:  # every rank drew the global batch: keep its rows
+                batch = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
             t0 = time.time()
             params, state, metrics = step_fn(params, state, batch)
             loss = float(metrics["loss"])  # waits for the step
@@ -143,12 +185,14 @@ def main():
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--mesh", default="", help="e.g. 2x2 (data x model); needs torch.distributed")
     a = ap.parse_args()
     _, _, losses = train(
         a.arch, reduced=a.reduced, steps=a.steps, global_batch=a.batch,
         seq_len=a.seq, movement=a.movement, peak_lr=a.lr,
         ckpt_dir=a.ckpt_dir or None, resume=a.resume,
         num_microbatches=a.microbatches, device=a.device,
+        mesh_shape=parse_shape(a.mesh) if a.mesh else None,
     )
     print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
 

@@ -132,7 +132,7 @@ def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor, enc_out: torch.
                  training: bool, make_cache: bool = False):
     """Teacher-forced decoder over ``tokens`` (B, S) -> (hidden normed by
     ``ln_f``, the cache stacked over layers or None)."""
-    x = params["embed"].to(enc_out.dtype)[tokens.long()]
+    x = nn.embed_lookup(params["embed"].to(enc_out.dtype), tokens.long())
     x = _add_positions(cfg, x)
     positions = torch.arange(tokens.shape[1], device=x.device)
     block = _remat(functools.partial(_dec_block, cfg, make_cache=make_cache,
@@ -151,7 +151,7 @@ def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor, pos: int)
     """token: (B,) integer; caches from prefill (self K/V grown for decode,
     cross K/V at the frame count), written in place.  -> (hidden (B, 1, d)
     normed by ``ln_f``, caches)."""
-    x = params["embed"][token.long()][:, None, :].to(torch.bfloat16)
+    x = nn.embed_lookup(params["embed"], token.long())[:, None, :].to(torch.bfloat16)
     x = _add_positions(cfg, x, pos)
     for i in range(cfg.dec_layers):
         p_l, c_l = nn.layer(params["dec"], i), nn.layer(caches, i)

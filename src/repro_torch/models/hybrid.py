@@ -110,8 +110,8 @@ def apply_shared_block_decode(cfg: ModelConfig, p, x, emb, inv: int, cache, pos:
     hh = nn.rms_norm(torch.cat([x, emb], dim=-1), p["ln1"], cfg.norm_eps)
     q, k_new, v_new = _shared_qkv(cfg, p, hh, inv, positions)
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0]
-    v[:, pos] = v_new[:, 0]
+    nn.set_index(k, 1, pos, k_new[:, 0])
+    nn.set_index(v, 1, pos, v_new[:, 0])
     o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk, kv_len=pos + 1)
     return _shared_out(cfg, p, x, emb, o), {"k": k, "v": v}
 
@@ -167,8 +167,8 @@ def trunk_decode(cfg: ModelConfig, params, x, emb, caches, pos: int):
         group = caches[f"ssm{inv}"]
         for i in range(n):
             x, c = mamba.mamba2_decode(cfg, nn.layer(params["mamba"], lo + i), x, nn.layer(group, i))
-            group["state"][i] = c["state"]
-            group["conv"][i] = c["conv"]
+            nn.set_index(group["state"], 0, i, c["state"])
+            nn.set_index(group["conv"], 0, i, c["conv"])
     return x, caches
 
 

@@ -90,7 +90,10 @@ def intra_chunk_scan(da: torch.Tensor, dbx: torch.Tensor, h_in: torch.Tensor):
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv via k shifted adds. x: (B, S, C), w: (C, k)."""
+    """Depthwise causal conv via k shifted adds. x: (B, S, C), w: (C, k).
+    A DTensor ``x`` is convolved on each rank's batch rows and channels."""
+    if nn.is_dtensor(x):
+        return _causal_conv_sharded(x, w, b)
     k = w.shape[1]
     s = x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
@@ -98,6 +101,26 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     for j in range(k):
         out = out + xp[:, j:j + s, :] * w[:, j].to(x.dtype)
     return out + b.to(x.dtype)
+
+
+def _causal_conv_sharded(x, w, b):
+    """``causal_conv`` on local blocks: x keeps its batch and channel shards
+    and gathers its positions, w and b take x's channel shards; their
+    gradients are partial sums over the mesh dims that split the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.runtime.sharding import contiguous_stride, with_placements
+
+    mesh = x.device_mesh
+    xpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                for p in x.placements)
+    wpl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xpl)
+    gpl = tuple(Partial() if p == Shard(0) else q for p, q in zip(xpl, wpl))
+    xl = with_placements(x, mesh, xpl).to_local()
+    wl, bl = (with_placements(t, mesh, wpl).to_local(grad_placements=gpl) for t in (w, b))
+    out = causal_conv(xl, wl, bl)
+    return DTensor.from_local(out.contiguous(), mesh, xpl, run_check=False, shape=x.shape,
+                              stride=contiguous_stride(x.shape))
 
 
 def causal_conv_step(x_t: torch.Tensor, tail: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -185,6 +208,7 @@ def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
 
 def mamba1_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     """x: (B, 1, d); cache {state: (B, di, n) f32, conv: (B, k-1, di)}."""
+    p = nn.gather_fsdp(p)
     h = nn.rms_norm(x, p["ln"], cfg.norm_eps)
     xz = torch.matmul(h, p["in_proj"].to(h.dtype))
     xi, z = xz[:, 0].chunk(2, dim=-1)  # (B, di)

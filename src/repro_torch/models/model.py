@@ -82,13 +82,14 @@ def stub_inputs(cfg: ModelConfig, tokens: torch.Tensor) -> Dict[str, torch.Tenso
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"].to(COMPUTE_DTYPE)[tokens.long()]
+    x = nn.embed_lookup(params["embed"].to(COMPUTE_DTYPE), tokens.long())
+    return nn.logical_constraint(x, "act_batch", None, None)
 
 
 def _head_weight(cfg: ModelConfig, params) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return params["embed"].T  # (d, V)
-    return params["lm_head"]
+        return nn.gather_fsdp(params["embed"]).T  # (d, V)
+    return nn.gather_fsdp(params["lm_head"])
 
 
 def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -152,6 +153,16 @@ def forward_hidden(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
 # --------------------------------------------------------------------------
 
 
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  Logits sharded over the vocab (a DTensor)
+    take it as a sum against the one-hot labels, which keeps them sharded:
+    one term is the logit, the rest exact zeros, so the value is the same."""
+    if nn.is_dtensor(logits):
+        onehot = torch.nn.functional.one_hot(labels, logits.shape[-1]).to(logits.dtype)
+        return (logits * onehot).sum(-1)
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, training: bool = True,
             aux_weight: float = 0.01, z_weight: float = 1e-4):
     """-> (loss, metrics).  Cross-entropy over ``LOSS_CHUNK`` positions at a
@@ -171,8 +182,9 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, trainin
     for i in range(0, s, chunk):
         h_c, l_c = hidden[:, i:i + chunk], labels[:, i:i + chunk]
         logits = torch.matmul(h_c.to(COMPUTE_DTYPE).to(torch.float32), w)
+        logits = nn.logical_constraint(logits, "act_batch", None, "vocab")
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, l_c.clamp_min(0)[..., None])[..., 0]
+        ll = _label_logit(logits, l_c.clamp_min(0))
         mask = (l_c >= 0).to(torch.float32)
         nll_sum = nll_sum + ((logz - ll) * mask).sum()
         z_sum = z_sum + (logz.square() * mask).sum()
@@ -204,8 +216,8 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x, c = mamba.mamba1_decode(cfg, nn.layer(params["blocks"], i), x, nn.layer(cache, i))
-            cache["state"][i] = c["state"]
-            cache["conv"][i] = c["conv"]
+            nn.set_index(cache["state"], 0, i, c["state"])
+            nn.set_index(cache["conv"], 0, i, c["conv"])
     elif cfg.family == "hybrid":
         x, cache = hybrid.trunk_decode(cfg, params["trunk"], x, x, cache, pos)
     else:

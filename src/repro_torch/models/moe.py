@@ -110,6 +110,9 @@ def _dispatch_group(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         slot = torch.where(r.keep, e_flat * cap + r.pos, e * cap)  # e * cap: the drop slot
         xs = x.new_zeros((e * cap + 1, d)).index_put((slot,), x[tok_flat])
         xs = xs[:e * cap].view(e, cap, d)
+        # keep the scattered dispatch buffer replicated: the expert products
+        # below induce the expert sharding
+        xs = nn.logical_constraint(xs, None, None, None)
     with record_function("moe.experts"):
         xg = torch.bmm(xs, p["w_gate"].to(x.dtype))
         xu = torch.bmm(xs, p["w_up"].to(x.dtype))

@@ -9,8 +9,10 @@ JAX-initialised parameters and never compare inits.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import sys
 from typing import TYPE_CHECKING, Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -163,7 +165,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 
 def _logistic_bf16(x: torch.Tensor) -> torch.Tensor:
-    """1/(1 + exp(-x)) with each op rounded to bf16, in place after the neg."""
+    """1/(1 + exp(-x)) with each op rounded to bf16, in place after the neg
+    (out of place on a DTensor, whose partial sums an in-place op cannot
+    reduce)."""
+    if is_dtensor(x):
+        return torch.reciprocal(torch.exp(torch.neg(x)) + 1)
     return torch.neg(x).exp_().add_(1).reciprocal_()
 
 
@@ -268,8 +274,17 @@ def attention(
 
     ``q_offset``: absolute position of q[:, 0] (decode: the write position).
     ``kv_len``: if given, keys at positions >= kv_len are masked (ring buffers
-    / partially-filled caches).
+    / partially-filled caches).  DTensors attend on each rank's batch rows
+    and q heads (``runtime.sharding.head_shards``), unless the keys are split
+    over their positions (a decode cache on ``kv_seq``).
     """
+    if is_dtensor(q):
+        from repro_torch.runtime.sharding import head_shards, is_sharded
+
+        if not is_sharded(k, 1):  # else a cache split over its positions: DTensor's products
+            ql, kl, vl, wrap = head_shards(q, k, v)
+            return wrap(attention(ql, kl, vl, causal=causal, window=window, chunk=chunk,
+                                  q_offset=q_offset, kv_len=kv_len, scale=scale))
     b, sq, h, dh = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -324,7 +339,150 @@ def _attn_chunk_masked(q, k, v, q_pos, kv_pos, *, causal, window, scale, kv_len)
     return out.to(q.dtype)
 
 
+# --------------------------------------------------------------------------
+# logical sharding annotations (runtime/sharding.py installs the rules)
+# --------------------------------------------------------------------------
+
+_MESH = None
+_LOGICAL_RULES: dict = {}
+
+
+def set_logical_rules(mesh, rules: dict) -> None:
+    global _MESH, _LOGICAL_RULES
+    _MESH, _LOGICAL_RULES = mesh, dict(rules)
+
+
+def clear_logical_rules() -> None:
+    global _MESH, _LOGICAL_RULES
+    _MESH, _LOGICAL_RULES = None, {}
+
+
+def mesh_context():
+    """While rules are active, plain tensors meeting DTensors in an op (masks,
+    positions, tables built in the model) count as replicated on the mesh."""
+    if _MESH is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor, without importing ``torch.distributed.tensor``
+    (seconds on a first call, which a one-device run would pay inside its
+    first timed step): no DTensor exists before that module is imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def gather_fsdp(tree: PyTree) -> PyTree:
+    """Each DTensor leaf gathered over the mesh axes other than ``model``
+    (FSDP's all-gather of a layer's weights before use; its backward
+    reduce-scatters the gradient); the TP shards stay.  Plain leaves pass."""
+
+    def one(w):
+        if not is_dtensor(w):
+            return w
+        from torch.distributed.tensor import Replicate
+
+        names = w.device_mesh.mesh_dim_names
+        pl = tuple(p if names[i] == "model" else Replicate() for i, p in enumerate(w.placements))
+        return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+
+    return tree_map(one, tree)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  A DTensor table is looked up on each rank's block:
+    the rank's rows of ``ids`` (batch-sharded as they come) against its
+    rows of the table (vocab-sharded over ``model``, whole elsewhere); ids
+    outside the block give zeros, and the partial rows sum over the mesh
+    dims that split the table to the one row that holds each id, so the
+    value is the same.  Its backward scatters into the local rows only."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.runtime.sharding import contiguous_stride, local_range, with_placements
+
+    mesh = table.device_mesh
+    if not is_dtensor(ids):
+        ids = with_placements(ids, mesh, (Replicate(),) * mesh.ndim)
+    # the table keeps only its vocab shards on mesh dims the ids do not split
+    tpl = tuple(p if p == Shard(0) and q == Replicate() else Replicate()
+                for p, q in zip(table.placements, ids.placements))
+    table = with_placements(table, mesh, tpl)
+    ipl = tuple(q if q == Shard(0) else Replicate() for q in ids.placements)
+    ids = with_placements(ids, mesh, ipl)
+    lo, n = local_range(table, 0)
+    il = ids.to_local()
+    mine = (il >= lo) & (il < lo + n)
+    # each rank's gradient holds its own rows' lookups: partial sums over
+    # the mesh dims that split the ids
+    gpl = tuple(Partial() if q == Shard(0) else p for p, q in zip(tpl, ipl))
+    rows = table.to_local(grad_placements=gpl)[(il - lo).clamp(0, n - 1)]
+    rows = rows * mine[..., None].to(rows.dtype)
+    # backward: a gradient replicated over a Partial mesh dim stays whole on
+    # every rank (DTensor keeps it so), which is each partial row's gradient
+    out = tuple(Shard(0) if q == Shard(0) else (Partial() if p == Shard(0) else Replicate())
+                for p, q in zip(tpl, ipl))
+    shape = (*ids.shape, table.shape[1])
+    return DTensor.from_local(rows, mesh, out, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n * m) -> (..., n, m).  A DTensor whose last dim is split more
+    ways than ``n`` divides (2 KV heads on 4 ranks) gathers that dim first:
+    its shards would cut a head."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        ways = 1
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == x.ndim - 1:
+                ways *= x.device_mesh.size(i)
+        if n % ways:
+            pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == x.ndim - 1 else p
+                       for p in x.placements)
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
+def set_index(buf: torch.Tensor, dim: int, i: int, val: torch.Tensor) -> None:
+    """``buf.select(dim, i).copy_(val)``: a cache write in place.  On a
+    DTensor ``buf`` only the rank whose block holds index ``i`` writes, its
+    own rows of ``val`` (laid out as ``buf`` without ``dim``)."""
+    if not is_dtensor(buf):
+        buf.select(dim, i).copy_(val)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.runtime.sharding import local_range, with_placements
+
+    target = []
+    for p in buf.placements:
+        if isinstance(p, Shard) and p.dim == dim:
+            p = Replicate()
+        elif isinstance(p, Shard) and p.dim > dim:
+            p = Shard(p.dim - 1)
+        target.append(p)
+    v = with_placements(val, buf.device_mesh, target).to_local()
+    lo, n = local_range(buf, dim)
+    if lo <= i < lo + n:
+        buf.to_local().select(dim, i - lo).copy_(v)
+
+
 def logical_constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
-    """Sharding annotation: the identity until the port shards (ROADMAP item
-    "Sharding")."""
-    return x
+    """Redistribute a DTensor ``x`` to the layout its logical ``axes`` take
+    under the active rules (a mesh axis is dropped from a dim it does not
+    divide); the identity with no rules active or on a plain tensor."""
+    if _MESH is None or not is_dtensor(x):
+        return x
+    from repro_torch.runtime.sharding import placements_for, spec_for
+
+    spec = spec_for(_MESH, _LOGICAL_RULES, axes, tuple(x.shape))
+    placements = placements_for(_MESH, spec)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(_MESH, placements)

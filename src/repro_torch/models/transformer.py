@@ -131,18 +131,32 @@ def _cache_window(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
-def gqa_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+def gqa_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor, *,
+            decode: bool = False):
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.matmul(x, p["wq"].to(x.dtype)).reshape(b, s, h, dh)
-    k = torch.matmul(x, p["wk"].to(x.dtype)).reshape(b, s, kvh, dh)
-    v = torch.matmul(x, p["wv"].to(x.dtype)).reshape(b, s, kvh, dh)
+    q = nn.split_last(torch.matmul(x, p["wq"].to(x.dtype)), h)
+    k = nn.split_last(torch.matmul(x, p["wk"].to(x.dtype)), kvh)
+    v = nn.split_last(torch.matmul(x, p["wv"].to(x.dtype)), kvh)
     if cfg.qk_norm:
         q = nn.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = nn.rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_embed == "rope":
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
+    if decode:
+        # align with the cache sharding (kv_seq / kv_dh per the active rules)
+        # so the products against the resident cache never re-shard it
+        q = logical_constraint(q, "act_batch", None, None, "kv_dh")
+        k = logical_constraint(k, "act_batch", None, None, "kv_dh")
+        v = logical_constraint(v, "act_batch", None, None, "kv_dh")
+        return q, k, v
+    # train/prefill: q shards over the full `heads` dim; raw k/v keep
+    # kv_heads unsharded (often fewer than the TP degree); the flash
+    # kernel's wrapper takes the KV heads each rank's q heads need
+    q = logical_constraint(q, "act_batch", None, "heads", None)
+    k = logical_constraint(k, "act_batch", None, None, None)
+    v = logical_constraint(v, "act_batch", None, None, None)
     return q, k, v
 
 
@@ -171,15 +185,19 @@ def gqa_attn_forward(
         w = _cache_window(cfg, k.shape[1])
         s = k.shape[1]
         if w < s:  # ring-buffer extraction: keep last w positions at slot p % w
-            sl = (torch.arange(w, device=k.device) + (s - w)) % w
-            kc = k.new_zeros((k.shape[0], w, *k.shape[2:]))
-            vc = v.new_zeros((v.shape[0], w, *v.shape[2:]))
-            kc[:, sl] = k[:, s - w:]
-            vc[:, sl] = v[:, s - w:]
+            kc, vc = _ring(k[:, s - w:], (s - w) % w), _ring(v[:, s - w:], (s - w) % w)
         else:
             kc, vc = k, v
         cache = {"k": kc, "v": vc}
     return out, cache
+
+
+def _ring(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)``, as slices joined (which DTensors
+    take)."""
+    if shift == 0:
+        return x
+    return torch.cat([x[:, -shift:], x[:, :-shift]], dim=1)
 
 
 def gqa_attn_decode(
@@ -188,12 +206,12 @@ def gqa_attn_decode(
     """One-token decode against a (ring) KV cache. x: (B, 1, d), pos: the
     absolute write position.  Writes the new key/value into ``cache`` in place."""
     positions = torch.tensor([pos], device=x.device)
-    q, k_new, v_new = gqa_qkv(cfg, p, x, positions)
+    q, k_new, v_new = gqa_qkv(cfg, p, x, positions, decode=True)
     k, v = cache["k"], cache["v"]
     w = k.shape[1]
     slot = pos % w
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    nn.set_index(k, 1, slot, k_new[:, 0])
+    nn.set_index(v, 1, slot, v_new[:, 0])
 
     if cfg.attn_kind == "swa":
         # ring buffer: slot i holds absolute position pos - ((pos - i) mod w);
@@ -257,6 +275,8 @@ def mla_attn_forward(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tens
     v = torch.matmul(ckv, p["w_uv"].to(x.dtype)).reshape(b, s, h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
+    q = logical_constraint(q, "act_batch", None, "heads", None)
+    k = logical_constraint(k, "act_batch", None, "heads", None)
     with record_function("mla.attention"):
         o = nn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     out = torch.matmul(o.reshape(b, s, -1), p["wo"].to(x.dtype))
@@ -276,8 +296,8 @@ def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch
     q_nope, q_rope = mla_project_q(cfg, p, x, positions)  # (B, 1, H, *)
     ckv_new, krope_new = mla_compress_kv(cfg, p, x, positions)
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv[:, pos] = ckv_new[:, 0]
-    krope[:, pos] = krope_new[:, 0]
+    nn.set_index(ckv, 1, pos, ckv_new[:, 0])
+    nn.set_index(krope, 1, pos, krope_new[:, 0])
 
     w_uk = p["w_uk"].reshape(r, h, cfg.qk_nope_dim).to(x.dtype)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # absorb the k up-projection
@@ -313,6 +333,7 @@ def apply_block(
     causal: bool = True,
     training: bool = False,
 ):
+    p = nn.gather_fsdp(p)
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         a, cache = mla_attn_forward(cfg, p["attn"], h, positions, make_cache=make_cache)
@@ -332,6 +353,7 @@ def apply_block(
 
 
 def apply_block_decode(cfg: ModelConfig, p, x, cache, pos: int, *, is_moe: bool):
+    p = nn.gather_fsdp(p)
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         a, new_cache = mla_attn_decode(cfg, p["attn"], h, cache, pos)

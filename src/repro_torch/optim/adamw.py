@@ -6,6 +6,11 @@ into the given tensors, leaf by leaf: at full width a second f32 copy of
 params, m and v would not fit beside them.  The values are those of JAX's
 functional form, computed in its order: these are the plain elementwise
 passes that JAX leaves to XLA.
+
+On a mesh the tree's leaves are DTensors, and the moments take the
+parameters' placements.  The clip reads the global norm over all shards
+(each leaf's sum of squares reduced over the mesh); the update itself is
+elementwise and runs on each rank's local blocks.
 """
 from __future__ import annotations
 
@@ -29,9 +34,27 @@ def init(params: Any) -> AdamWState:
                       nn.tree_map(torch.zeros_like, params))
 
 
+class LeafShape(NamedTuple):
+    """A leaf's shape and dtype, without storage (JAX's ``ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def init_abstract(params: Any) -> AdamWState:
+    """The shapes and dtypes of ``init(params)``'s leaves."""
+    z = nn.tree_map(lambda p: LeafShape(tuple(p.shape), p.dtype), params)
+    return AdamWState(LeafShape((), torch.int32), z, z)
+
+
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """sum(g²) in f32; over all shards of a DTensor, as a plain tensor."""
+    s = torch.sum(torch.square(g.to(torch.float32)))
+    return s.full_tensor() if nn.is_dtensor(s) else s
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in nn.tree_leaves(tree)))
+    return torch.sqrt(sum(_sum_sq(g) for g in nn.tree_leaves(tree)))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -81,5 +104,8 @@ def update(
         p.sub_(lr * delta)
 
     for g, m, v, p in zip(*map(nn.tree_leaves, (grads, state.m, state.v, params))):
+        if nn.is_dtensor(p):
+            g = g.redistribute(p.device_mesh, p.placements)
+            g, m, v, p = (x.to_local() for x in (g, m, v, p))
         upd(g, m, v, p)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

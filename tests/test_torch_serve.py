@@ -201,5 +201,6 @@ def test_serve_defaults_to_the_card():
 
 
 def test_serve_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Sharding"):
+    # a mesh needs an initialised process group of its size: never unsharded
+    with pytest.raises(ValueError, match=r"world size 2, have none"):
         serve("h2o-danube-1.8b", reduced=True, mesh_shape=(2, 1), device="cpu")
