@@ -119,9 +119,21 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               of reduced danube, zamba2, falcon-mamba, deepseek, whisper and
               internvl2 from the same state and batches; the MoE routed on
               the card as on the CPU;
+ 29. dryrun   launch/dryrun.py on the card (--device cuda), each cell in a
+              child process with a time limit: danube train_4k (daemon) and
+              prefill_32k and falcon-mamba prefill_32k on a 16x16 mesh of a
+              fake process group, and danube's DAEMON_AGGRESSIVE train step
+              there through run_cell: every record ok, the child's device
+              memory not grown and no real launch, K3 dry-launched 24 times at
+              danube's prefill, K4 64 times at falcon's, K1 = K2 = the real
+              launches of a danube step (train: 0, train_step: 18);
+ 30. examples examples/train_lm_torch.py (300 steps, no checkpoints: the
+              card has no zstandard; the loss must fall) and
+              examples/serve_lm_torch.py, each in a child process;
 then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (5-24, 26) and read just after; launches made to compare a
+main-path phase (5-24, 26) and read just after (29-30 read their
+children's); launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
 """
@@ -257,16 +269,6 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask keeps: the work K3 must do on these inputs."""
-    total = 0
-    for qpos in range(sq):
-        hi = min(skv - 1, qpos) if causal else skv - 1
-        lo = max(0, qpos - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def device_profile(torch, fn, ops=()) -> dict:
     """Run ``fn`` under torch.profiler: wall time, summed kernel time, the
     device's busy share of the wall time, the kernels that took most, the
@@ -377,7 +379,7 @@ def check_block_quant(torch, cfg):
     out) and every foldable gradient (the fold: f32 in, f32 out), plus a
     ragged one.  ``ms``/``plain_ms``/``bound_ms`` sum the working copy's 7
     launches; ``train_step_*`` sum a training step's 18 (7 + 11 folded)."""
-    from repro_torch.kernels.block_quant import kernel, ref
+    from repro_torch.kernels.block_quant import kernel, ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -418,7 +420,7 @@ def check_block_quant(torch, cfg):
             n = x.numel()
             t1 = time_ms(torch, lambda: kernel.quantize(x))
             p1 = time_ms(torch, lambda: ref.quantize_ref(x))
-            b1 = (4 * n + n + 4 * n // 128) / HBM_BYTES_PER_S * 1e3
+            b1 = ops.cost("quantize", n, 4)[1] / HBM_BYTES_PER_S * 1e3
             row.update(k1_ms=t1, k1_plain_ms=p1, k1_bound_ms=b1)
             add_times(k1, "train_step_", t1, p1, b1, times=1 + copied)
             if copied:
@@ -426,7 +428,7 @@ def check_block_quant(torch, cfg):
             for k2_dt, out_bytes in ((torch.float32, 4), (torch.bfloat16, 2))[:1 + copied]:
                 t2 = time_ms(torch, lambda: kernel.dequantize(q, s, k2_dt))
                 p2 = time_ms(torch, lambda: ref.dequantize_ref(q, s, k2_dt))
-                b2 = (n + 4 * n // 128 + out_bytes * n) / HBM_BYTES_PER_S * 1e3
+                b2 = ops.cost("dequantize", n, out_bytes)[1] / HBM_BYTES_PER_S * 1e3
                 tag = str(k2_dt).replace("torch.", "")
                 row.update({f"k2_{tag}_out_ms": t2, f"k2_{tag}_out_plain_ms": p2,
                             f"k2_{tag}_out_bound_ms": b2})
@@ -456,7 +458,7 @@ def check_block_quant_moe(torch, cfg):
     the other shapes whole.  The plain version is timed whole where it fits,
     and on a stack's last layer otherwise, beside K1/K2 on the same rows."""
     from repro_torch.core.movement.daemon_step import is_page_class
-    from repro_torch.kernels.block_quant import kernel, ref
+    from repro_torch.kernels.block_quant import kernel, ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -483,8 +485,8 @@ def check_block_quant_moe(torch, cfg):
             del q_ref, s_ref
         t1 = time_ms(torch, lambda: kernel.quantize(x))
         t2 = time_ms(torch, lambda: kernel.dequantize(q, s, torch.bfloat16))
-        b1 = (4 * n + n + 4 * n // 128) / HBM_BYTES_PER_S * 1e3
-        b2 = (n + 4 * n // 128 + 2 * n) / HBM_BYTES_PER_S * 1e3
+        b1 = ops.cost("quantize", n, 4)[1] / HBM_BYTES_PER_S * 1e3
+        b2 = ops.cost("dequantize", n, 2)[1] / HBM_BYTES_PER_S * 1e3
         row = {"shape": list(full), "flat": [rows, c], "elements": n, "checked_rows": spans,
                "k1_ms": t1, "k1_bound_ms": b1, "k2_bf16_out_ms": t2, "k2_bf16_out_bound_ms": b2}
         sub = slice(None) if len(spans) == 1 else slice(rows - rows // full[0], rows)
@@ -567,7 +569,7 @@ def check_flash_attention(torch, cfg):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -694,8 +696,8 @@ def check_flash_attention(torch, cfg):
         plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal=causal,
                                                             window=window))
 
-        flops = 4 * d * b * h * band_pairs(sq, skv, causal, window)
-        n_bytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kvh * d)  # q, o; k, v in bf16
+        flops, n_bytes = ops.cost(b=b, sq=sq, skv=skv, h=h, kvh=kvh, d=d, causal=causal,
+                                  window=window, elem_bytes=2)  # q, o; k, v in bf16
         bound_ms = max(flops / BF16_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
         bound_by = "operations" if flops / BF16_FLOP_PER_S > n_bytes / HBM_BYTES_PER_S else "bytes"
         emit("kernels.flash_attention", arch=arch, case=list(shape), dtype="bfloat16",
@@ -741,7 +743,7 @@ def check_mamba_scan(torch, cfg):
     import torch.nn.functional as F
 
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.mamba_scan import kernel, ref
+    from repro_torch.kernels.mamba_scan import kernel, ops, ref
 
     log = runtime.library_path("mamba_scan").with_suffix(".log").read_text()
     ptxas = ptxas_per_kernel(log)
@@ -806,9 +808,9 @@ def check_mamba_scan(torch, cfg):
 
     b, s, d, n = shape
     updates = b * s * d * n
-    flops = 8 * updates  # the Pallas shim's count (repro/kernels/mamba_scan/ops.py)
-    # dt f32 + x bf16 + y f32 per (b, s, d); B, C f32 per (b, s, n); A; h_last
-    n_bytes = (4 + 2 + 4) * b * s * d + 2 * 4 * b * s * n + 4 * d * n + 4 * b * d * n
+    # the Pallas shim's 8 FLOP an update; dt f32 + x bf16 + y f32 per (b, s, d),
+    # B, C f32 per (b, s, n), A, h_last
+    flops, n_bytes = ops.cost(b=b, s=s, d=d, n=n, x_bytes=2)
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1279,6 +1281,7 @@ def train_flop(cfg, batch: int, seq: int) -> dict:
     enc-dec, the frames as long as the tokens, every pair of the encoder's and
     the cross-attention's and the causal ones of the decoder's).  The SSM
     scans and the recompute of a rematerialised layer are not counted."""
+    from repro_torch.kernels.flash_attention.ops import band_pairs
     from repro_torch.models import hybrid
     from repro_torch.models import model as M
 
@@ -2083,6 +2086,144 @@ def run_reference_train(torch, arch):
          moe_routing_card_vs_cpu=routing)
 
 
+DRY_MESH = "16x16"
+# a child process that runs one dry-run cell and reports what it did to the
+# card: the CLI (``--cli`` then its arguments) or run_cell with
+# DAEMON_AGGRESSIVE (``--aggressive ARCH CELL MESH``)
+_DRY_CHILD = r"""
+import json, runpy, sys, torch
+from repro_torch.kernels import runtime
+torch.cuda.init()
+before = torch.cuda.memory_allocated()
+out = {}
+if sys.argv[1] == "--cli":
+    sys.argv = ["repro_torch.launch.dryrun", *sys.argv[2:]]
+    try:
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        out["rc"] = e.code
+else:
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import dryrun
+    arch, cell, mesh = sys.argv[2:5]
+    out["record"] = dryrun.run_cell(arch, cell, mesh, movement="daemon", device="cuda",
+                                    movement_cfg=mv.DAEMON_AGGRESSIVE)
+out.update(memory_allocated_before=before, memory_allocated_after=torch.cuda.memory_allocated(),
+           max_memory_allocated=torch.cuda.max_memory_allocated(), launches=runtime.LAUNCHES)
+print("DRY_CHILD " + json.dumps(out))
+"""
+
+
+def _child(args, timeout):
+    """Run ``python args`` from the checkout's root with the port on its path;
+    -> (exit code, stdout, stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def run_dryrun(torch, per_phase):
+    """launch/dryrun.py on the card: each cell in a child process (300 s at
+    most), traced on fake CUDA tensors over a fake process group of 256
+    ranks.  The child's device memory must not grow and no kernel may really
+    launch; the kernels' dry launches must be the real path's: K3 once a
+    layer at danube's prefill, K4 once a layer at falcon's, and K1/K2 those
+    of one danube step on one card (none under DAEMON_DEFAULT, as the train
+    phase's train() shows; 11 folded + 7 copied under DAEMON_AGGRESSIVE, the
+    train_step phase's).  -> the children's real launches (all 0)."""
+    from repro_torch.configs import get_config
+
+    out_dir = ROOT / "build" / "dryrun"
+    layers = {ARCH: get_config(ARCH).num_layers, SSM_ARCH: get_config(SSM_ARCH).num_layers}
+    # a step's real launches: the train phase's train() took 3 DAEMON_DEFAULT
+    # steps, the train_step phase TRAIN_STEPS + 1 DAEMON_AGGRESSIVE ones
+    default_step = {k: v // 3 for k, v in per_phase["train"].items() if v}
+    step_k1 = per_phase["train_step"]["block_quant.quantize"] // (TRAIN_STEPS + 1)
+    cells = [
+        (ARCH, "train_4k", "daemon", default_step),
+        (ARCH, "prefill_32k", "baseline", {"flash_attention.forward": layers[ARCH]}),
+        (SSM_ARCH, "prefill_32k", "baseline", {"mamba_scan.forward": layers[SSM_ARCH]}),
+        (ARCH, "train_4k", "daemon (DAEMON_AGGRESSIVE)",
+         {"block_quant.quantize": step_k1, "block_quant.dequantize": step_k1}),
+    ]
+    real = dict.fromkeys(per_phase["train"], 0)
+    for arch, cell, movement, want in cells:
+        if movement == "daemon (DAEMON_AGGRESSIVE)":
+            args = ["--aggressive", arch, cell, DRY_MESH]
+        else:
+            args = ["--cli", "--arch", arch, "--cell", cell, "--mesh", DRY_MESH,
+                    "--movement", movement, "--device", "cuda", "--out", str(out_dir)]
+        rc, stdout, stderr, wall = _child(["-c", _DRY_CHILD, *args], timeout=300)
+        line = next((x for x in stdout.splitlines() if x.startswith("DRY_CHILD ")), None)
+        require(rc == 0 and line is not None,
+                f"dryrun {arch} {cell}: child exit {rc}: {stdout[-1500:]} {stderr[-2500:]}")
+        child = json.loads(line[len("DRY_CHILD "):])
+        rec = child.pop("record", None)
+        if rec is None:
+            rec = json.loads((out_dir / f"{arch}_{cell}_{DRY_MESH}_{movement}.json").read_text())
+        require(rec["ok"] and child.get("rc", 0) == 0,
+                f"dryrun {arch} {cell} {movement}: {rec.get('error')}\n{rec.get('traceback')}")
+        for k, v in child["launches"].items():
+            real[k] += v
+        emit("dryrun", arch=arch, cell=cell, mesh=DRY_MESH, movement=movement,
+             microbatches=rec.get("microbatches"), trace_s=rec["lower_s"], child_wall_s=wall,
+             t_compute_s=rec["t_compute_s"], t_memory_s=rec["t_memory_s"],
+             t_collective_s=rec["t_collective_s"], bottleneck=rec["bottleneck"],
+             model_flops_ratio=rec.get("model_flops_ratio"), flops=rec["flops"],
+             dot_flops=rec["dot_flops"], hbm_bytes=rec["hbm_bytes"],
+             collectives=rec["collectives"], memory_analysis=rec["memory_analysis"],
+             kernel_launches=rec["kernel_launches"], expected_kernel_launches=want,
+             **{k: child[k] for k in ("memory_allocated_before", "memory_allocated_after",
+                                      "max_memory_allocated", "launches")},
+             peaks="H100 SXM data sheet (dense, 700 W), not measured", nvidia_smi=nvidia_smi())
+        require(child["memory_allocated_after"] == child["memory_allocated_before"],
+                f"dryrun {arch} {cell}: device memory grew in the child")
+        require(not any(child["launches"].values()),
+                f"dryrun {arch} {cell}: a kernel really launched: {child['launches']}")
+        require(rec["kernel_launches"] == want,
+                f"dryrun {arch} {cell} {movement}: dry launches {rec['kernel_launches']}, "
+                f"not {want}")
+    return real
+
+
+def run_examples(torch):
+    """examples/train_lm_torch.py (300 steps; checkpoints off: the card has no
+    zstandard) and examples/serve_lm_torch.py on the card, each in a child
+    process: the loss must fall and serving exit 0.  -> the children's
+    launches."""
+    code = ("import json, runpy, sys\n"
+            "from repro_torch.kernels import runtime\n"
+            "sys.argv = sys.argv[1:]\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "print('LAUNCHES ' + json.dumps(runtime.LAUNCHES))\n")
+    total = {}
+    runs = [("train_lm_torch", ["--steps", "300", "--device", "cuda", "--ckpt-dir", ""], 600),
+            ("serve_lm_torch", ["--device", "cuda"], 300)]
+    for name, args, limit in runs:
+        rc, stdout, stderr, wall = _child(["-c", code, str(ROOT / "examples" / f"{name}.py"),
+                                           *args], timeout=limit)
+        lines = stdout.splitlines()
+        require(rc == 0, f"examples {name}: exit {rc}: {stdout[-1500:]} {stderr[-2500:]}")
+        launches = json.loads(next(x for x in lines if x.startswith("LAUNCHES "))[9:])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        printed = [x for x in lines if not x.startswith("LAUNCHES ")]
+        row = {"example": name, "args": args, "wall_s": wall, "launches": launches}
+        if name == "train_lm_torch":
+            m = re.search(r"loss ([\d.]+) -> ([\d.]+) over (\d+) steps", stdout)
+            require(m is not None, f"examples {name}: no loss line")
+            first, last = float(m.group(1)), float(m.group(2))
+            row.update(first_loss=first, last_loss=last, steps=int(m.group(3)),
+                       printed=printed[:1] + printed[-4:])
+            require(last < first, f"examples {name}: loss {first} -> {last} did not fall")
+        else:
+            row["printed"] = printed
+        emit("examples", **row, nvidia_smi=nvidia_smi())
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2176,6 +2317,8 @@ def main() -> int:
     per_phase["train"] = run_train(torch, runtime)
     run_autograd_guard(torch)
     run_reference(torch)
+    per_phase["dryrun"] = run_dryrun(torch, per_phase)
+    per_phase["examples"] = run_examples(torch)
 
     src = "src/repro_torch/kernels"
 

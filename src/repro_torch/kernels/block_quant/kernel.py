@@ -33,6 +33,7 @@ def _check_2d(t: torch.Tensor, what: str) -> None:
 
 def quantize(x: torch.Tensor):
     """K1. x: (R, C) f32/bf16 -> (q int8 (R, C), scales f32 (R, C/128))."""
+    runtime.refuse_fake("block_quant.quantize", x)
     _check_2d(x, "x")
     if x.dtype not in _FLOATS:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
@@ -62,6 +63,7 @@ def quantize_launch(n_blocks: int, x_dtype: torch.dtype = torch.float32) -> dict
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """K2. q int8 (R, C), scales f32 (R, C/128) -> (R, C) in ``dtype`` (f32/bf16)."""
+    runtime.refuse_fake("block_quant.dequantize", q, scales)
     _check_2d(q, "q")
     if q.dtype != torch.int8:
         raise ValueError(f"q must be int8, got {q.dtype}")

@@ -57,6 +57,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
             window: int) -> torch.Tensor:
     """K3. q (B, Sq, H, D), k/v (B, Skv, KVH, D) -> o (B, Sq, H, D) in q's dtype."""
+    runtime.refuse_fake("flash_attention.forward", q, k, v)
     _check(q, k, v)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]

@@ -1,9 +1,11 @@
 """Public flash-attention entry point (port of
 ``repro.kernels.flash_attention.ops``): the Hopper kernel K3 for CUDA
 tensors, which raises on what it does not take; the plain version in
-``ref.py`` for CPU tensors, which the caller asked for."""
+``ref.py`` for CPU tensors, which the caller asked for.  A fake CUDA tensor
+(a dry run) gets an empty output and its launch reported with :func:`cost`."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
@@ -21,10 +23,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if is_dtensor(q):
         return _sharded(q, k, v, causal=causal, window=window)
+    if runtime.dry(q, k, v):
+        runtime.forward_only("flash_attention (K3)", q, k, v)
+        b, sq, h, d = q.shape
+        if d not in kernel.HEAD_DIMS:
+            raise ValueError(f"head_dim {d} not in the kernel's {kernel.HEAD_DIMS}")
+        if q.numel():
+            flops, n_bytes = cost(b=b, sq=sq, skv=k.shape[1], h=h, kvh=k.shape[2], d=d,
+                                  causal=causal, window=window, elem_bytes=q.element_size())
+            runtime.dry_launch("flash_attention.forward", flops=flops, bytes=n_bytes)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.is_cuda:
         runtime.forward_only("flash_attention (K3)", q, k, v)
         return kernel.forward(q, k, v, causal=causal, window=window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask keeps: the work K3 must do on these inputs."""
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv - 1, qpos) if causal else np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def cost(*, b: int, sq: int, skv: int, h: int, kvh: int, d: int, causal: bool = True,
+         window: int = 0, elem_bytes: int = 2):
+    """(FLOP, bytes) of one K3 launch on q (B, Sq, H, D), k/v (B, Skv, KVH, D):
+    two products of 2·D FLOP a kept (q, k) pair and q head, and q, k, v read
+    once and o written once, ``elem_bytes`` an element."""
+    flops = 4 * d * b * h * band_pairs(sq, skv, causal, window)
+    n_bytes = elem_bytes * (2 * b * sq * h * d + 2 * b * skv * kvh * d)
+    return flops, n_bytes
 
 
 def _sharded(q, k, v, *, causal: bool, window: int):

@@ -47,6 +47,7 @@ def forward(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.T
             x: torch.Tensor):
     """K4. dt (B, S, D) f32, a (D, N) f32, bmat/cmat (B, S, N) f32, x (B, S, D)
     f32 or bf16 -> (y (B, S, D) f32, h_last (B, D, N) f32)."""
+    runtime.refuse_fake("mamba_scan.forward", dt, a, bmat, cmat, x)
     _check(dt, a, bmat, cmat, x)
     b, s, d = dt.shape
     n = a.shape[1]

@@ -1,7 +1,8 @@
 """Public selective-scan entry point (port of
 ``repro.kernels.mamba_scan.ops``): the Hopper kernel K4 for CUDA tensors,
 which raises on what it does not take; the plain version in ``ref.py`` for
-CPU tensors, which the caller asked for."""
+CPU tensors, which the caller asked for.  Fake CUDA tensors (a dry run) get
+empty outputs and their launch reported with :func:`cost`."""
 from __future__ import annotations
 
 import torch
@@ -21,10 +22,30 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: 
 
     if is_dtensor(dt):
         return _sharded(dt, a, bmat, cmat, x)
+    if runtime.dry(dt, a, bmat, cmat, x):
+        runtime.forward_only("selective_scan (K4)", dt, a, bmat, cmat, x)
+        b, s, d = dt.shape
+        n = a.shape[1]
+        if n not in kernel.STATE_DIMS:
+            raise ValueError(f"state dim N={n} not in the kernel's {kernel.STATE_DIMS}")
+        if dt.numel():
+            flops, n_bytes = cost(b=b, s=s, d=d, n=n, x_bytes=x.element_size())
+            runtime.dry_launch("mamba_scan.forward", flops=flops, bytes=n_bytes)
+        return (torch.empty((b, s, d), dtype=torch.float32, device=dt.device),
+                torch.empty((b, d, n), dtype=torch.float32, device=dt.device))
     if dt.is_cuda:
         runtime.forward_only("selective_scan (K4)", dt, a, bmat, cmat, x)
         return kernel.forward(dt, a, bmat, cmat, x)
     return ref.selective_scan_ref(dt, a, bmat, cmat, x)
+
+
+def cost(*, b: int, s: int, d: int, n: int, x_bytes: int = 2):
+    """(FLOP, bytes) of one K4 launch on dt, x (B, S, D), A (D, N), B/C
+    (B, S, N): 8 FLOP a state update (the Pallas shim's count), and dt (f32),
+    x (``x_bytes``), B, C and A read once, y and h_last (f32) written once."""
+    flops = 8 * b * s * d * n
+    n_bytes = (4 + x_bytes + 4) * b * s * d + 2 * 4 * b * s * n + 4 * d * n + 4 * b * d * n
+    return flops, n_bytes
 
 
 def _sharded(dt, a, bmat, cmat, x):

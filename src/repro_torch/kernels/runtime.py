@@ -10,6 +10,13 @@ CPU tests import every module, and there is no ``nvcc`` there.
 
 ``LAUNCHES`` counts launches per kernel; a wrapper adds one where it launches
 its kernel and nowhere else, so a run can show which kernels its path took.
+
+A dry run (``launch/dryrun.py``) traces the path on fake tensors: a wrapper
+given fake CUDA tensors (:func:`dry`) launches nothing, returns empty outputs
+and reports the launch it would make, with its cost, to the active op counters
+(:func:`dry_launch`); ``LAUNCHES`` counts only real launches.  The kernels
+themselves refuse fake tensors (:func:`refuse_fake`): a fake tensor's
+``data_ptr()`` is 0.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -46,11 +53,47 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the op counters (``launch.hlo_cost.OpCounter``) that are active, innermost last
+COUNTERS: List = []
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _is_fake(t) -> bool:
+    """``is_fake``, after a check that passes a plain tensor in ~0.1 us (a
+    fake tensor is a ``torch.Tensor`` subclass)."""
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)
+
+
+def dry(*tensors) -> bool:
+    """Whether a wrapper's inputs are fake CUDA tensors (a dry run's): the
+    wrapper then reports its launch and launches nothing."""
+    return any(_is_fake(t) and t.is_cuda for t in tensors)
+
+
+def dry_launch(name: str, *, flops: float, bytes: float) -> None:
+    """Report a launch of kernel ``name`` (a ``LAUNCHES`` key) that a dry run
+    skipped, with the FLOP and bytes its ``cost()`` gives, to the active op
+    counters."""
+    if name not in LAUNCHES:
+        raise KeyError(f"unknown kernel {name!r}")
+    for counter in COUNTERS:
+        counter.kernel(name, flops, bytes)
+
+
+def refuse_fake(kernel: str, *tensors) -> None:
+    """Raise before a kernel reads ``data_ptr()`` of a fake tensor (it is 0:
+    the kernel would run on address 0)."""
+    if any(_is_fake(t) for t in tensors):
+        raise RuntimeError(f"{kernel}: fake tensors have no data; a dry run goes through "
+                           "the ops wrapper, which launches nothing")
 
 
 def nvcc_path() -> str:

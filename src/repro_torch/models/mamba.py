@@ -159,6 +159,10 @@ def _mamba1_gates(cfg: ModelConfig, p, xi: torch.Tensor):
     proj = torch.matmul(xi, p["x_proj"].to(xi.dtype))
     dt_low, bb, cc = torch.split(proj, [r, n, n], dim=-1)
     dt = torch.matmul(dt_low, p["dt_w"].to(xi.dtype))
+    # on a mesh, dt's partial sums over ssm_inner are reduced to its shards
+    # before the bias is added (torch 2.11's DTensor would make the bias
+    # partial instead, and cannot)
+    dt = logical_constraint(dt, "act_batch", *(None,) * (dt.dim() - 2), "ssm_inner")
     dt = F.softplus(dt.to(torch.float32) + p["dt_b"].to(torch.float32))
     return dt, bb.to(torch.float32), cc.to(torch.float32)
 

@@ -226,6 +226,42 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor, pos: int):
     return logits_at(cfg, params, x[:, 0]), cache
 
 
+def input_specs(cfg: ModelConfig, cell, device="cuda") -> Dict[str, Any]:
+    """Abstract inputs for one (arch x shape) cell, as fake tensors on
+    ``device`` (``nn.abstract_params``): JAX's ``input_specs``.  A decode
+    cell's ``pos`` is the cache's last slot, a Python int: the port's decode
+    step takes the write position as one."""
+    b, s = cell.global_batch, cell.seq_len
+
+    def fake(shape, dtype):
+        with nn.fake_mode():
+            return torch.empty(shape, dtype=dtype, device=device)
+
+    if cell.kind in ("train", "prefill"):
+        out = {}
+        if cfg.family == "vlm":
+            p = cfg.num_prefix_tokens
+            out["tokens"] = fake((b, s - p), torch.int32)
+            out["patches"] = fake((b, p, cfg.d_model), COMPUTE_DTYPE)
+        elif cfg.family == "audio":
+            out["frames"] = fake((b, s, cfg.d_model), COMPUTE_DTYPE)
+            out["tokens"] = fake((b, s), torch.int32)
+        else:
+            out["tokens"] = fake((b, s), torch.int32)
+        if cell.kind == "train":
+            out["labels"] = fake(out["tokens"].shape, torch.int32)
+        return out
+    if cell.kind == "decode":
+        cache = nn.abstract_params(cache_specs(cfg, b, s), COMPUTE_DTYPE, device)
+        # SSM states stay f32 (accumulated recurrence)
+        for tree in ([cache] if cfg.family == "ssm" else
+                     [v for k, v in cache.items() if k.startswith("ssm")]
+                     if cfg.family == "hybrid" else []):
+            tree["state"] = fake(tree["state"].shape, torch.float32)
+        return {"token": fake((b,), torch.int32), "pos": s - 1, "cache": cache}
+    raise ValueError(cell.kind)
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
     if cfg.family == "audio":
         return encdec.cache_specs(cfg, batch, seq_len)

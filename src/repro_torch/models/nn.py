@@ -112,6 +112,23 @@ def init_params(specs: PyTree, generator: torch.Generator, device: torch.device,
     return spec_tree_map(one, specs)
 
 
+def fake_mode():
+    """The active ``FakeTensorMode``, or a new one.  Tensors of two modes do
+    not mix: make every fake tensor of one run inside one mode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    return mode if mode is not None else FakeTensorMode()
+
+
+def abstract_params(specs: PyTree, dtype: torch.dtype = torch.float32,
+                    device: Union[str, torch.device] = "cuda") -> PyTree:
+    """Fake tensors of the specs' shapes in ``dtype`` on ``device`` (JAX's
+    ``ShapeDtypeStruct``s): shapes and dtypes, no storage, no device memory."""
+    with fake_mode():
+        return spec_tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device=device), specs)
+
+
 def param_count(specs: PyTree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
 

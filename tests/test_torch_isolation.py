@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+examples' torch twins (``examples/*_torch.py``) import nothing of JAX and
+nothing of the JAX package ``repro`` or of ``benchmarks``."""
 import ast
 import os
 import pkgutil
@@ -11,11 +12,13 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(twins) == 2, twins
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + twins
 
 
 def _forbidden(name: str) -> bool:
