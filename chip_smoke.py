@@ -97,6 +97,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               step (23 + 15), the first batch's cross-entropy lowered;
  23. train_audio the same for whisper-base at full width and depth, batch 16
               x 1024 with zero frames: K1 = K2 = 42 a step (24 + 18);
+ 23b. sharded (families) the sharded phase's (1, 1) mesh for more families
+              at full width: falcon-mamba-7b's serving (K4 64 times, on the
+              rank's local channels) and zamba2-1.2b's (K3 7 times, on its
+              local heads), their prefill logits within LOGIT_TOL of
+              serve_ssm's and serve_hybrid's, their launches equal; then
+              whisper-base's 3 DAEMON_AGGRESSIVE steps at 16 x 1024 (K1 = K2
+              = 42 a step), the losses within LOSS_RTOL of train_audio's;
  24. collectives  the DaeMon collectives on one process group of world size 1
               (NCCL for CUDA tensors): compressed_grad_sync of f32 gradients
               with residuals at danube's 11 foldable shapes, compressed and
@@ -120,19 +127,24 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               internvl2 from the same state and batches; the MoE routed on
               the card as on the CPU;
  29. dryrun   launch/dryrun.py on the card (--device cuda), each cell in a
-              child process with a time limit: danube train_4k (daemon) and
-              prefill_32k and falcon-mamba prefill_32k on a 16x16 mesh of a
-              fake process group, and danube's DAEMON_AGGRESSIVE train step
-              there through run_cell: every record ok, the child's device
-              memory not grown and no real launch, K3 dry-launched 24 times at
-              danube's prefill, K4 64 times at falcon's, K1 = K2 = the real
-              launches of a danube step (train: 0, train_step: 18);
- 30. examples examples/train_lm_torch.py (300 steps, no checkpoints: the
+              child process with a time limit, all started together: danube
+              train_4k (daemon) and prefill_32k, falcon-mamba prefill_32k,
+              minicpm-2b train_4k at full size (36 heads on TP 16),
+              deepseek-v2-lite-16b, zamba2-1.2b and whisper-base
+              prefill_32k on a 16x16 mesh of a fake process group, and
+              danube's DAEMON_AGGRESSIVE train step there through run_cell:
+              every record ok, the child's device memory not grown and no
+              real launch, K3 dry-launched 24 times at danube's prefill, 7 at
+              zamba2's and 18 at whisper's, K4 64 times at falcon's, none at
+              deepseek's or minicpm's, K1 = K2 = the real launches of a
+              danube step (train: 0, train_step: 18);
+ 30. examples examples/train_lm_torch.py (100 steps, no checkpoints: the
               card has no zstandard; the loss must fall) and
               examples/serve_lm_torch.py, each in a child process;
-then a {"kernels": [...]} line, the nvidia-smi line, and as the last line
+Every phase line carries t_s, the seconds since the script started.  Then a
+{"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (5-24, 26) and read just after (29-30 read their
+main-path phase (5-24, 26; 23b) and read just after (29-30 read their
 children's); launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
@@ -241,8 +253,12 @@ SCAN_CASES_BF16 = [(2, 37, 130, 8), (1, 4099, 200, 8)]
 SCAN_CASE_OFFSET_X = (2, 300, 256, 16)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 class SmokeFailure(Exception):
@@ -269,12 +285,132 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_profile(torch, fn, ops=()) -> dict:
+def profile_totals(torch, prof, ops=()) -> tuple:
+    """What ``prof.key_averages()`` gives ``device_profile``, read off the
+    profiler's raw events without building its Python event list (which
+    takes about 1 ms a kernel launch: most of this script's time otherwise).
+    -> ({device event key: [ms, count]} of the events that are not named
+    ranges, {key of ``ops``: the device ms of the kernels its host events and
+    the events nested in them launched}, {key of ``ops``: its device-side
+    span in ms}).  As torch's parser does it: a device event belongs to the
+    host event whose correlation id it links, a device-runtime event runs on
+    that event's thread, host events nest by their intervals on one thread
+    (async ones apart), and a parent whose only child has its name takes the
+    child's kernels and children in its place."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    kernels, spans, own, host, runtime, thread_of, names = {}, {}, {}, [], [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:  # demangled, as the event list names it
+            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
+        sync = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        link = e.linked_correlation_id()
+        if e.device_type() == cuda:
+            us = (e.end_ns() - e.start_ns()) / 1e3 if sync else 0.0
+            if e.is_user_annotation() or name in ops:
+                spans[name] = spans.get(name, 0.0) + us
+            else:
+                acc = kernels.setdefault(name, [0.0, 0])
+                acc[0] += us
+                acc[1] += 1
+            if link > 0:
+                own[link] = own.get(link, 0.0) + us
+        elif e.device_type() == cpu and sync:
+            row = [e.start_thread_id(), e.start_ns(), -e.end_ns(), name, e.correlation_id()]
+            if link == 0:
+                host.append(row)
+                thread_of[row[4]] = row[0]
+            else:
+                runtime.append((link, row))
+    for link, row in runtime:
+        row[0], row[4] = thread_of.get(link, row[0]), None
+        host.append(row)
+    # the host events' tree, as EventList._populate_cpu_children builds it
+    host.sort(key=lambda r: (r[0], r[1], r[2]))
+    parent, children, stack = [-1] * len(host), [[] for _ in host], []
+    for i, (thread, start, neg_end, _, _) in enumerate(host):
+        while stack:
+            j = stack[-1]
+            if host[j][0] != thread or start >= -host[j][2] or -neg_end > -host[j][2]:
+                stack.pop()
+            else:
+                parent[i] = j
+                children[j].append(i)
+                break
+        stack.append(i)
+    mine = [own.get(r[4], 0.0) if r[4] is not None else 0.0 for r in host]
+    alive, changed = [True] * len(host), True
+    while changed:  # EventList._remove_dup_nodes
+        changed = False
+        for i, row in enumerate(host):
+            j = parent[i]
+            if alive[i] and j >= 0 and host[j][3] == row[3] and len(children[j]) == 1:
+                children[j], mine[j] = children[i], mine[i]
+                for c in children[i]:
+                    parent[c] = j
+                alive[i], changed = False, True
+    # a parent sorts before its children: add each total into its parent's
+    total = mine[:]
+    for i in range(len(host) - 1, -1, -1):
+        if alive[i] and parent[i] >= 0:
+            total[parent[i]] += total[i]
+    op_ms = {}
+    for i, row in enumerate(host):
+        if alive[i] and row[3] in ops:
+            op_ms[row[3]] = op_ms.get(row[3], 0.0) + total[i] / 1e3
+    return ({k: [us / 1e3, n] for k, (us, n) in kernels.items()}, op_ms,
+            {k: us / 1e3 for k, us in spans.items() if k in ops})
+
+
+def profile_totals_torch(torch, prof, ops=()) -> tuple:
+    """``profile_totals`` through ``prof.key_averages()``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    averages = prof.key_averages()
+
+    def annotation(e):  # a named range's device-side span, not a kernel
+        return getattr(e, "is_user_annotation", False) or e.key in ops
+
+    return ({e.key: [e.self_device_time_total / 1e3, e.count] for e in averages
+             if e.device_type == cuda and not annotation(e)},
+            {e.key: e.device_time_total / 1e3 for e in averages
+             if e.key in ops and e.device_type != cuda},
+            {e.key: e.self_device_time_total / 1e3 for e in averages
+             if e.key in ops and e.device_type == cuda})
+
+
+def check_profile_totals(torch, prof, ops, where: str) -> None:
+    """``profile_totals`` must give what ``key_averages()`` gives: the same
+    keys and counts, each time within 1e-6 ms."""
+    fast, slow = profile_totals(torch, prof, ops), profile_totals_torch(torch, prof, ops)
+    kernels = {k: v for k, v in slow[0].items()}
+    ok = (fast[0].keys() == kernels.keys()
+          and all(fast[0][k][1] == kernels[k][1] for k in kernels)
+          and all(abs(fast[0][k][0] - kernels[k][0]) <= 1e-6 for k in kernels)
+          and {k for k, v in fast[1].items()} == {k for k in slow[1]}
+          and all(abs(fast[1][k] - slow[1][k]) <= 1e-6 for k in slow[1])
+          and fast[2].keys() == slow[2].keys()
+          and all(abs(fast[2][k] - slow[2][k]) <= 1e-6 for k in slow[2]))
+    emit("profile_totals", where=where, ops=list(ops), kernel_keys=len(kernels),
+         launches=sum(n for _, n in kernels.values()), equal_to_key_averages=ok,
+         op_ms=fast[1], op_ms_key_averages=slow[1], span_ms=fast[2],
+         span_ms_key_averages=slow[2])
+    require(ok, f"{where}: the profile's totals read off its raw events differ from "
+                f"key_averages(): {fast} vs {slow}")
+
+
+def device_profile(torch, fn, ops=(), check: str = "") -> dict:
     """Run ``fn`` under torch.profiler: wall time, summed kernel time, the
     device's busy share of the wall time, the kernels that took most, the
     device time of the kernels each CPU op or named range in ``ops``
     launched through PyTorch (not K1/K2's, launched through ctypes), and the
-    device-side span of each named range."""
+    device-side span of each named range (``profile_totals``; with ``check``,
+    a label, held to ``key_averages()`` too)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -283,20 +419,10 @@ def device_profile(torch, fn, ops=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU launch event carries its kernel's time too
-    cuda = torch.autograd.DeviceType.CUDA
-    averages = prof.key_averages()
-
-    def annotation(e):  # a named range's device-side span, not a kernel
-        return getattr(e, "is_user_annotation", False) or e.key in ops
-
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in averages if e.device_type == cuda and not annotation(e)),
-                     key=lambda k: -k[1])
-    op_ms = {e.key: e.device_time_total / 1e3 for e in averages
-             if e.key in ops and e.device_type != cuda}
-    span_ms = {e.key: e.self_device_time_total / 1e3 for e in averages
-               if e.key in ops and e.device_type == cuda}
+    if check:
+        check_profile_totals(torch, prof, ops, check)
+    by_kernel, op_ms, span_ms = profile_totals(torch, prof, ops)
+    kernels = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()), key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
 
     def share(*marks):
@@ -989,7 +1115,9 @@ def run_serving_profile(torch, runtime, phase, cfg, batch, prompt):
     launches = {}
     for part, fn in (("prefill", run_prefill), ("4 decode steps", run_decode)):
         runtime.reset_launches()
-        prof = device_profile(torch, fn, ops=("aten::mm", "aten::bmm"))
+        # whisper's profiles are small: hold the fast totals to torch's there
+        prof = device_profile(torch, fn, ops=("aten::mm", "aten::bmm"),
+                              check=f"{phase} {part}" if phase == "profile_audio" else "")
         launches[part] = dict(runtime.LAUNCHES)
         emit(phase, arch=cfg.name, num_layers=cfg.num_layers, part=f"{part} (bf16 copy)",
              launches=launches[part], **prof)
@@ -1385,7 +1513,8 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
                               ops=("aten::mm", "aten::bmm", "aten::_softmax",
                                    "aten::_softmax_backward_data", "aten::mul", "aten::cat",
                                    "daemon_step.grads", "daemon_step.fold", "daemon_step.adamw",
-                                   "daemon_step.working_copy"))
+                                   "daemon_step.working_copy"),
+                              check=phase if phase == "train_audio" else "")
         per_step.append(dict(runtime.LAUNCHES))
     finally:
         pipe.close()
@@ -1638,6 +1767,94 @@ def run_collectives(torch, runtime, cfg):
     return launches
 
 
+@contextlib.contextmanager
+def one_rank_group(torch, name: str):
+    """A process group of world size 1 (``cpu:gloo,cuda:nccl``, a ``file://``
+    store under ``build/``), destroyed on the way out."""
+    import torch.distributed as dist
+
+    store = ROOT / "build" / f"chip_smoke_pg_{name}.{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend="cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def sharded_steps(torch, runtime, cfg, batch_size: int, seq: int) -> dict:
+    """SHARDED_STEPS DAEMON_AGGRESSIVE steps of ``cfg`` from the seeded
+    master on ``make_mesh(SHARDED_MESH)`` (a process group must be up):
+    DTensor state laid out by ``base_rules(fsdp=True)``, batches from the
+    token pipeline with the stub frontends' inputs, as the train phases."""
+    from repro_torch.core import movement as mv
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+    from repro_torch.runtime import sharding as shd
+
+    dev = torch.device("cuda")
+    losses, times, per_step = [], [], []
+    mesh = make_mesh(SHARDED_MESH, device=dev)
+    rules = shd.base_rules(mesh, fsdp=True)
+    shd.activate(mesh, rules)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch_size, seed=SEED))
+    try:
+        specs = M.model_specs(cfg)
+        master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+        master = shd.place_tree(master, shd.sharding_for_specs(mesh, rules, specs))
+        state = mv.init_state(master)
+        params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
+        del master
+        step = steps.make_train_step(cfg, total_steps=TRAIN_STEPS, movement="daemon",
+                                     movement_cfg=mv.DAEMON_AGGRESSIVE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(SHARDED_STEPS):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
+            batch.update(M.stub_inputs(cfg, batch["tokens"]))
+            batch = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
+            runtime.reset_launches()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per_step.append(dict(runtime.LAUNCHES))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        as_dtensors = all(nn.is_dtensor(x) for tree in (state.master, state.adam.m,
+                                                       state.adam.v, state.residual)
+                          for x in nn.tree_leaves(tree))
+        del params, state
+    finally:
+        pipe.close()
+        shd.deactivate()
+    free_memory(torch)
+    return {"losses": losses, "times": times, "per_step": per_step, "peak_gb": peak_gb,
+            "as_dtensors": as_dtensors}
+
+
+def sharded_serve(torch, runtime, cfg, batch: int, prompt: int) -> tuple:
+    """``serve_config(cfg)`` on ``SHARDED_MESH`` (a process group must be up)
+    -> (its result, launches, peak memory in GB)."""
+    from repro_torch.launch.serve import serve_config
+
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    r = serve_config(cfg, batch=batch, prompt_len=prompt, gen_tokens=GEN, movement="daemon",
+                     mesh_shape=SHARDED_MESH, seed=SEED, device=torch.device("cuda"),
+                     return_logits=True)
+    return r, dict(runtime.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9
+
+
 def run_sharded(torch, runtime, cfg):
     """The main paths on a mesh: the train_step phase's DaeMon step and the
     serve phase's serving, on one NCCL process group of world size 1 and
@@ -1649,80 +1866,18 @@ def run_sharded(torch, runtime, cfg):
     held to train_step's first three within LOSS_RTOL and the prefill logits
     to serve's within LOGIT_TOL (both from the same seed and batches; equal
     bits are reported, not required)."""
-    import torch.distributed as dist
-
-    from repro_torch.core import movement as mv
-    from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.serve import serve_config
-    from repro_torch.models import model as M
-    from repro_torch.models import nn
-    from repro_torch.runtime import sharding as shd
-
     # DTensor warns on each redistribution over several mesh dims
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
-    dev = torch.device("cuda")
-    store = ROOT / "build" / f"chip_smoke_pg_sharded.{os.getpid()}"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
-    torch.cuda.set_device(0)
-    dist.init_process_group(backend="cpu:gloo,cuda:nccl", init_method=f"file://{store}",
-                            world_size=1, rank=0)
     want = {"block_quant.quantize": 18, "block_quant.dequantize": 18,
             "flash_attention.forward": 0, "mamba_scan.forward": 0}
     total = dict.fromkeys(runtime.LAUNCHES, 0)
-    losses, times, per_step = [], [], []
-    try:
-        mesh = make_mesh(SHARDED_MESH, device=dev)
-        rules = shd.base_rules(mesh, fsdp=True)
-        shd.activate(mesh, rules)
-        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                        global_batch=BATCH, seed=SEED))
-        try:
-            specs = M.model_specs(cfg)
-            master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(SEED), dev)
-            master = shd.place_tree(master, shd.sharding_for_specs(mesh, rules, specs))
-            state = mv.init_state(master)
-            params = mv.working_copy(master, mv.DAEMON_AGGRESSIVE)
-            del master
-            step = steps.make_train_step(cfg, total_steps=TRAIN_STEPS, movement="daemon",
-                                         movement_cfg=mv.DAEMON_AGGRESSIVE)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(SHARDED_STEPS):
-                batch = {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
-                batch = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
-                runtime.reset_launches()
-                t0 = time.perf_counter()
-                params, state, metrics = step(params, state, batch)
-                losses.append(float(metrics["loss"]))  # waits for the step
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                per_step.append(dict(runtime.LAUNCHES))
-                for k in total:
-                    total[k] += runtime.LAUNCHES[k]
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            sharded_state = all(nn.is_dtensor(x) for tree in (state.master, state.adam.m,
-                                                             state.adam.v, state.residual)
-                                for x in nn.tree_leaves(tree))
-            del params, state
-        finally:
-            pipe.close()
-            shd.deactivate()
-        free_memory(torch)
-        torch.cuda.reset_peak_memory_stats()
-        runtime.reset_launches()
-        r = serve_config(cfg, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN,
-                         movement="daemon", mesh_shape=SHARDED_MESH, seed=SEED, device=dev,
-                         return_logits=True)
-        serve_launches = dict(runtime.LAUNCHES)
-        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    with one_rank_group(torch, "sharded"):
+        st = sharded_steps(torch, runtime, cfg, BATCH, TRAIN_SEQ)
+        r, serve_launches, serve_peak = sharded_serve(torch, runtime, cfg, BATCH, PROMPT)
+    losses, times, per_step = st["losses"], st["times"], st["per_step"]
+    for launches in per_step + [serve_launches]:
         for k in total:
-            total[k] += serve_launches[k]
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
+            total[k] += launches[k]
     ref, ref_serve = UNSHARDED["train_step"], UNSHARDED["serve"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
     logit_err = float((r["logits"] - ref_serve["logits"]).abs().max())
@@ -1732,9 +1887,9 @@ def run_sharded(torch, runtime, cfg):
          unsharded_losses=ref["losses"][:SHARDED_STEPS], loss_max_rel=rel,
          losses_bit_equal=losses == ref["losses"][:SHARDED_STEPS],
          step_s=step_s, step_s_each=times, unsharded_step_s=ref["step_s"],
-         step_s_over_unsharded=step_s / ref["step_s"], peak_memory_gb=peak_gb,
+         step_s_over_unsharded=step_s / ref["step_s"], peak_memory_gb=st["peak_gb"],
          unsharded_peak_memory_gb=ref["peak_memory_gb"], launches_per_step=per_step,
-         state_as_dtensors=sharded_state,
+         state_as_dtensors=st["as_dtensors"],
          serve_prompt_len=PROMPT, serve_batch=BATCH, logits_max_abs_err=logit_err,
          tokens_equal=bool((r["tokens"] == ref_serve["tokens"]).all()),
          prefill_s=r["prefill_s"], unsharded_prefill_s=ref_serve["prefill_s"],
@@ -1743,13 +1898,70 @@ def run_sharded(torch, runtime, cfg):
          serve_peak_memory_gb=serve_peak,
          unsharded_serve_peak_memory_gb=ref_serve["peak_memory_gb"],
          serve_launches=serve_launches, nvidia_smi=nvidia_smi())
-    require(sharded_state, "sharded: the training state is not held as DTensors")
+    require(st["as_dtensors"], "sharded: the training state is not held as DTensors")
     require(rel <= LOSS_RTOL, f"sharded: losses {losses} vs unsharded {ref['losses']}")
     require(logit_err <= LOGIT_TOL, f"sharded: prefill logits {logit_err} off the unsharded")
     for i, launches in enumerate(per_step):
         require(launches == want, f"sharded step {i}: launches {launches}, not {want}")
     require(serve_launches == ref_serve["launches"],
             f"sharded serve: launches {serve_launches}, not {ref_serve['launches']}")
+    free_memory(torch)
+    return total
+
+
+def run_sharded_families(torch, runtime, ssm_cfg, hybrid_cfg, audio_cfg):
+    """More families through the sharded phase's (1, 1) mesh at full width:
+    falcon-mamba-7b's and zamba2-1.2b's serving (K4 on the rank's local
+    channels, 64 launches; K3 on its local heads, 7), their prefill logits
+    held to serve_ssm's and serve_hybrid's within LOGIT_TOL and their
+    launches equal to those phases'; whisper-base's DaeMon step at 16 x
+    1024 (K1 = K2 = 42 a step), its losses held to train_audio's first three
+    within LOSS_RTOL."""
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    total = dict.fromkeys(runtime.LAUNCHES, 0)
+    with one_rank_group(torch, "sharded_families"):
+        for phase, cfg in (("serve_ssm", ssm_cfg), ("serve_hybrid", hybrid_cfg)):
+            ref = UNSHARDED[phase]
+            r, launches, peak = sharded_serve(torch, runtime, cfg, BATCH, PROMPT)
+            for k in total:
+                total[k] += launches[k]
+            err = float((r["logits"] - ref["logits"]).abs().max())
+            emit("sharded", arch=cfg.name, mesh=list(SHARDED_MESH), serve_batch=BATCH,
+                 serve_prompt_len=PROMPT, logits_max_abs_err=err, logit_tol=LOGIT_TOL,
+                 tokens_equal=bool((r["tokens"] == ref["tokens"]).all()),
+                 prefill_s=r["prefill_s"], unsharded_prefill_s=ref["prefill_s"],
+                 decode_s_per_token=r["decode_s_per_token"],
+                 unsharded_decode_s_per_token=ref["decode_s_per_token"],
+                 serve_peak_memory_gb=peak, unsharded_serve_peak_memory_gb=ref["peak_memory_gb"],
+                 serve_launches=launches, unsharded_launches=ref["launches"],
+                 nvidia_smi=nvidia_smi())
+            require(err <= LOGIT_TOL, f"sharded {cfg.name}: prefill logits {err} off {phase}'s")
+            require(launches == ref["launches"],
+                    f"sharded {cfg.name}: launches {launches}, not {phase}'s {ref['launches']}")
+            del r
+        st = sharded_steps(torch, runtime, audio_cfg, AUDIO_BATCH, AUDIO_TRAIN_SEQ)
+    for launches in st["per_step"]:
+        for k in total:
+            total[k] += launches[k]
+    ref = UNSHARDED["train_audio"]
+    losses = st["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    want = {"block_quant.quantize": 42, "block_quant.dequantize": 42,
+            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    step_s = statistics.median(st["times"][1:])
+    emit("sharded", arch=audio_cfg.name, mesh=list(SHARDED_MESH), batch=AUDIO_BATCH,
+         seq_len=AUDIO_TRAIN_SEQ, movement="daemon (DAEMON_AGGRESSIVE)", steps=SHARDED_STEPS,
+         losses=losses, unsharded_losses=ref["losses"][:SHARDED_STEPS], loss_max_rel=rel,
+         losses_bit_equal=losses == ref["losses"][:SHARDED_STEPS], step_s=step_s,
+         step_s_each=st["times"], unsharded_step_s=ref["step_s"],
+         peak_memory_gb=st["peak_gb"], unsharded_peak_memory_gb=ref["peak_memory_gb"],
+         launches_per_step=st["per_step"], state_as_dtensors=st["as_dtensors"],
+         nvidia_smi=nvidia_smi())
+    require(st["as_dtensors"], "sharded whisper: the training state is not held as DTensors")
+    require(rel <= LOSS_RTOL, f"sharded whisper: losses {losses} vs train_audio's "
+                              f"{ref['losses']}")
+    for i, launches in enumerate(st["per_step"]):
+        require(launches == want, f"sharded whisper step {i}: launches {launches}, not {want}")
     free_memory(torch)
     return total
 
@@ -2117,26 +2329,46 @@ print("DRY_CHILD " + json.dumps(out))
 def _child(args, timeout):
     """Run ``python args`` from the checkout's root with the port on its path;
     -> (exit code, stdout, stderr, seconds)."""
+    return _children([args], timeout)[0]
+
+
+def _children(jobs, timeout):
+    """``_child`` of each of ``jobs`` (argument lists), all started together;
+    each is killed at ``timeout`` seconds -> [(exit code, stdout, stderr,
+    seconds)] in the order of ``jobs``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=timeout)
-    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+    procs = [subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for args in jobs]
+    out = []
+    for p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        out.append((p.returncode, stdout, stderr, time.perf_counter() - t0))
+    return out
 
 
 def run_dryrun(torch, per_phase):
-    """launch/dryrun.py on the card: each cell in a child process (300 s at
-    most), traced on fake CUDA tensors over a fake process group of 256
-    ranks.  The child's device memory must not grow and no kernel may really
-    launch; the kernels' dry launches must be the real path's: K3 once a
-    layer at danube's prefill, K4 once a layer at falcon's, and K1/K2 those
-    of one danube step on one card (none under DAEMON_DEFAULT, as the train
-    phase's train() shows; 11 folded + 7 copied under DAEMON_AGGRESSIVE, the
-    train_step phase's).  -> the children's real launches (all 0)."""
+    """launch/dryrun.py on the card: each cell in a child process, all
+    started together (300 s at most each), traced at full size on fake CUDA
+    tensors over a fake process group of 256 ranks.  The child's device
+    memory must not grow and no kernel may really launch; the kernels' dry
+    launches must be the real path's: K3 once a layer at danube's prefill,
+    once a shared-block invocation at zamba2's (7) and 18 times at
+    whisper's, K4 once a layer at falcon's, none at deepseek's (MLA) or in
+    minicpm's baseline training step, and K1/K2 those of one danube step on
+    one card (none under DAEMON_DEFAULT, as the train phase's train() shows;
+    11 folded + 7 copied under DAEMON_AGGRESSIVE, the train_step phase's).
+    -> the children's real launches (all 0)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
 
     out_dir = ROOT / "build" / "dryrun"
     layers = {ARCH: get_config(ARCH).num_layers, SSM_ARCH: get_config(SSM_ARCH).num_layers}
+    audio = get_config(AUDIO_ARCH)
     # a step's real launches: the train phase's train() took 3 DAEMON_DEFAULT
     # steps, the train_step phase TRAIN_STEPS + 1 DAEMON_AGGRESSIVE ones
     default_step = {k: v // 3 for k, v in per_phase["train"].items() if v}
@@ -2147,15 +2379,24 @@ def run_dryrun(torch, per_phase):
         (SSM_ARCH, "prefill_32k", "baseline", {"mamba_scan.forward": layers[SSM_ARCH]}),
         (ARCH, "train_4k", "daemon (DAEMON_AGGRESSIVE)",
          {"block_quant.quantize": step_k1, "block_quant.dequantize": step_k1}),
+        ("minicpm-2b", "train_4k", "baseline", {}),
+        (MOE_ARCH, "prefill_32k", "baseline", {}),
+        (HYBRID_ARCH, "prefill_32k", "baseline",
+         {"flash_attention.forward": hybrid.n_invocations(get_config(HYBRID_ARCH))}),
+        (AUDIO_ARCH, "prefill_32k", "baseline",
+         {"flash_attention.forward": audio.enc_layers + 2 * audio.dec_layers}),
     ]
     real = dict.fromkeys(per_phase["train"], 0)
+    jobs = []
     for arch, cell, movement, want in cells:
         if movement == "daemon (DAEMON_AGGRESSIVE)":
             args = ["--aggressive", arch, cell, DRY_MESH]
         else:
             args = ["--cli", "--arch", arch, "--cell", cell, "--mesh", DRY_MESH,
                     "--movement", movement, "--device", "cuda", "--out", str(out_dir)]
-        rc, stdout, stderr, wall = _child(["-c", _DRY_CHILD, *args], timeout=300)
+        jobs.append(["-c", _DRY_CHILD, *args])
+    for (arch, cell, movement, want), (rc, stdout, stderr, wall) in zip(
+            cells, _children(jobs, timeout=300)):
         line = next((x for x in stdout.splitlines() if x.startswith("DRY_CHILD ")), None)
         require(rc == 0 and line is not None,
                 f"dryrun {arch} {cell}: child exit {rc}: {stdout[-1500:]} {stderr[-2500:]}")
@@ -2189,7 +2430,8 @@ def run_dryrun(torch, per_phase):
 
 
 def run_examples(torch):
-    """examples/train_lm_torch.py (300 steps; checkpoints off: the card has no
+    """examples/train_lm_torch.py (100 steps, past the LR warmup; checkpoints
+    off: the card has no
     zstandard) and examples/serve_lm_torch.py on the card, each in a child
     process: the loss must fall and serving exit 0.  -> the children's
     launches."""
@@ -2199,7 +2441,7 @@ def run_examples(torch):
             "runpy.run_path(sys.argv[0], run_name='__main__')\n"
             "print('LAUNCHES ' + json.dumps(runtime.LAUNCHES))\n")
     total = {}
-    runs = [("train_lm_torch", ["--steps", "300", "--device", "cuda", "--ckpt-dir", ""], 600),
+    runs = [("train_lm_torch", ["--steps", "100", "--device", "cuda", "--ckpt-dir", ""], 600),
             ("serve_lm_torch", ["--device", "cuda"], 300)]
     for name, args, limit in runs:
         rc, stdout, stderr, wall = _child(["-c", code, str(ROOT / "examples" / f"{name}.py"),
@@ -2312,6 +2554,8 @@ def main() -> int:
         (23, 15))
     per_phase["train_audio"] = run_train_step(torch, runtime, audio_cfg, "train_audio", (24, 18),
                                               batch_size=AUDIO_BATCH, seq=AUDIO_TRAIN_SEQ)
+    per_phase["sharded_families"] = run_sharded_families(torch, runtime, ssm_cfg, hybrid_cfg,
+                                                         audio_cfg)
     per_phase["collectives"] = run_collectives(torch, runtime, cfg)
     run_checkpoint(torch, cfg)
     per_phase["train"] = run_train(torch, runtime)

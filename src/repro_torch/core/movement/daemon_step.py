@@ -37,7 +37,7 @@ from repro_torch.core.movement.engine import DAEMON_DEFAULT, MovementConfig
 from repro_torch.kernels.block_quant import ops as bq
 from repro_torch.models import nn
 from repro_torch.optim import adamw
-from repro_torch.runtime.sharding import contiguous_stride
+from repro_torch.runtime.sharding import from_block
 
 
 class DaemonState(NamedTuple):
@@ -89,15 +89,12 @@ def _on_blocks(fn: Callable, x: torch.Tensor):
     """``fn`` applied to the rank-local blocks of the DTensor ``x`` laid out
     by :func:`block_layout`; its outputs (of the local shape) come back as
     DTensors in ``x``'s placements."""
-    from torch.distributed.tensor import DTensor
-
     lay = block_layout(x)
     xl = x.redistribute(x.device_mesh, lay) if lay != tuple(x.placements) else x
     outs = fn(xl.to_local())
     back = []
     for o in outs:
-        d = DTensor.from_local(o, x.device_mesh, lay, run_check=False, shape=x.shape,
-                               stride=contiguous_stride(x.shape))
+        d = from_block(o, x.device_mesh, lay, x.shape)
         back.append(d.redistribute(x.device_mesh, x.placements) if lay != tuple(x.placements)
                     else d)
     return back

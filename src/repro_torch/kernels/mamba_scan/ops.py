@@ -52,9 +52,9 @@ def _sharded(dt, a, bmat, cmat, x):
     """K4 on DTensors: dt and x keep their batch (dim 0) and channel (dim 2)
     shards, A is split over its channels as they are, B and C keep only the
     batch shards; each rank scans its local rows and channels."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.runtime.sharding import with_placements
+    from repro_torch.runtime.sharding import from_block, with_placements
 
     mesh = dt.device_mesh
     xpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
@@ -68,10 +68,7 @@ def _sharded(dt, a, bmat, cmat, x):
     y, h = selective_scan(*(t.to_local().contiguous() for t in (dt, a, bmat, cmat, x)))
     b, s, d = dt.shape
     n = a.shape[1]
-    return (DTensor.from_local(y, mesh, xpl, run_check=False, shape=(b, s, d),
-                               stride=(s * d, d, 1)),
-            DTensor.from_local(h, mesh, hpl, run_check=False, shape=(b, d, n),
-                               stride=(d * n, n, 1)))
+    return from_block(y, mesh, xpl, (b, s, d)), from_block(h, mesh, hpl, (b, d, n))
 
 
 # K4's launch, as csrc/mamba_scan.cu sets it: 128 threads, two lanes a

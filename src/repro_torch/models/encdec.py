@@ -60,10 +60,8 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
-    b, s, _ = enc_out.shape
-    h, dh = cfg.num_heads, cfg.head_dim
-    k = torch.matmul(enc_out, p["wk"].to(enc_out.dtype)).reshape(b, s, h, dh)
-    v = torch.matmul(enc_out, p["wv"].to(enc_out.dtype)).reshape(b, s, h, dh)
+    k = nn.split_last(nn.dense(enc_out, p["wk"]), cfg.num_heads)
+    v = nn.split_last(nn.dense(enc_out, p["wv"]), cfg.num_heads)
     return k, v
 
 
@@ -72,14 +70,12 @@ def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, k: torch.Tensor, v: torch.
     """Non-causal attention of the decoder's x over the encoder's K/V: through
     the flash kernel when ``kernel`` (prefill), else ``nn.attention``
     (training, decode)."""
-    b, s, _ = x.shape
-    h, dh = cfg.num_heads, cfg.head_dim
-    q = torch.matmul(x, p["wq"].to(x.dtype)).reshape(b, s, h, dh)
+    q = nn.split_last(nn.dense(x, p["wq"]), cfg.num_heads)
     if kernel:
         o = flash_attention(q, k, v, causal=False)
     else:
         o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    return torch.matmul(o.reshape(b, s, -1), p["wo"].to(x.dtype))
+    return nn.dense(nn.merge_last(o), p["wo"])
 
 
 def _add_positions(cfg: ModelConfig, x: torch.Tensor, offset: int = 0) -> torch.Tensor:

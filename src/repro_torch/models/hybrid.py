@@ -64,16 +64,14 @@ def shared_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _shared_qkv(cfg: ModelConfig, p, cat: torch.Tensor, inv: int, positions: torch.Tensor):
-    b, s, _ = cat.shape
-    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
 
     def proj(name, heads):
-        y = torch.matmul(cat, p[f"w{name}"].to(cat.dtype))
+        y = nn.dense(cat, p[f"w{name}"])
         if cfg.shared_lora_rank:
-            la = p[f"lora_{name}_a"][inv].to(cat.dtype)
-            lb = p[f"lora_{name}_b"][inv].to(cat.dtype)
-            y = y + torch.matmul(torch.matmul(cat, la), lb)
-        return y.reshape(b, s, heads, dh)
+            la, lb = p[f"lora_{name}_a"][inv], p[f"lora_{name}_b"][inv]
+            y = y + nn.dense(nn.dense(cat, la), lb)
+        return nn.split_last(y, heads)
 
     q, k, v = proj("q", h), proj("k", kvh), proj("v", kvh)
     if cfg.pos_embed == "rope":
@@ -84,7 +82,7 @@ def _shared_qkv(cfg: ModelConfig, p, cat: torch.Tensor, inv: int, positions: tor
 
 def _shared_out(cfg: ModelConfig, p, x: torch.Tensor, emb: torch.Tensor, o: torch.Tensor):
     """The attention's output projection and the MLP over [x, emb]."""
-    x = x + torch.matmul(o.reshape(*o.shape[:2], -1), p["wo"].to(x.dtype))
+    x = x + nn.dense(nn.merge_last(o), p["wo"])
     hh = nn.rms_norm(torch.cat([x, emb], dim=-1), p["ln2"], cfg.norm_eps)
     return x + nn.swiglu(hh, p["w_gate"], p["w_up"], p["w_down"])
 

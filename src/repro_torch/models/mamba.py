@@ -107,9 +107,9 @@ def _causal_conv_sharded(x, w, b):
     """``causal_conv`` on local blocks: x keeps its batch and channel shards
     and gathers its positions, w and b take x's channel shards; their
     gradients are partial sums over the mesh dims that split the batch."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    from repro_torch.runtime.sharding import contiguous_stride, with_placements
+    from repro_torch.runtime.sharding import from_block, with_placements
 
     mesh = x.device_mesh
     xpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
@@ -119,8 +119,7 @@ def _causal_conv_sharded(x, w, b):
     xl = with_placements(x, mesh, xpl).to_local()
     wl, bl = (with_placements(t, mesh, wpl).to_local(grad_placements=gpl) for t in (w, b))
     out = causal_conv(xl, wl, bl)
-    return DTensor.from_local(out.contiguous(), mesh, xpl, run_check=False, shape=x.shape,
-                              stride=contiguous_stride(x.shape))
+    return from_block(out, mesh, xpl, x.shape)
 
 
 def causal_conv_step(x_t: torch.Tensor, tail: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -156,13 +155,9 @@ def mamba1_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def _mamba1_gates(cfg: ModelConfig, p, xi: torch.Tensor):
     """xi: (B, ..., di) post-conv activations -> dt, B, C (f32)."""
     n, r = cfg.ssm_state, cfg.dt_rank
-    proj = torch.matmul(xi, p["x_proj"].to(xi.dtype))
+    proj = nn.dense(xi, p["x_proj"])
     dt_low, bb, cc = torch.split(proj, [r, n, n], dim=-1)
-    dt = torch.matmul(dt_low, p["dt_w"].to(xi.dtype))
-    # on a mesh, dt's partial sums over ssm_inner are reduced to its shards
-    # before the bias is added (torch 2.11's DTensor would make the bias
-    # partial instead, and cannot)
-    dt = logical_constraint(dt, "act_batch", *(None,) * (dt.dim() - 2), "ssm_inner")
+    dt = nn.dense(dt_low, p["dt_w"])
     dt = F.softplus(dt.to(torch.float32) + p["dt_b"].to(torch.float32))
     return dt, bb.to(torch.float32), cc.to(torch.float32)
 
@@ -175,7 +170,7 @@ def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
     N) f32 tensor is 134 MB a sequence, and a chunk's scan keeps ~20 of them
     for autograd.  Recomputation changes no value."""
     h = nn.rms_norm(x, p["ln"], cfg.norm_eps)
-    xz = torch.matmul(h, p["in_proj"].to(h.dtype))
+    xz = nn.dense(h, p["in_proj"])
     xi, z = xz.chunk(2, dim=-1)
     xi = logical_constraint(xi, "act_batch", None, "ssm_inner")
     xc = nn.silu(causal_conv(xi, p["conv_w"], p["conv_b"])).contiguous()
@@ -202,7 +197,7 @@ def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
                                    cc.contiguous(), xc)
         y = (y + d_skip * xc.to(torch.float32)).to(x.dtype)
     y = (y.to(torch.float32) * nn.silu(z.to(torch.float32))).to(x.dtype)
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    out = nn.dense(y, p["out_proj"])
 
     cache = None
     if make_cache:
@@ -214,7 +209,7 @@ def mamba1_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     """x: (B, 1, d); cache {state: (B, di, n) f32, conv: (B, k-1, di)}."""
     p = nn.gather_fsdp(p)
     h = nn.rms_norm(x, p["ln"], cfg.norm_eps)
-    xz = torch.matmul(h, p["in_proj"].to(h.dtype))
+    xz = nn.dense(h, p["in_proj"])
     xi, z = xz[:, 0].chunk(2, dim=-1)  # (B, di)
     xc, new_tail = causal_conv_step(xi, cache["conv"], p["conv_w"], p["conv_b"])
     xc = nn.silu(xc)
@@ -225,7 +220,7 @@ def mamba1_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     hst = da * cache["state"] + dbx
     y = torch.einsum("bcn,bn->bc", hst, cc) + p["D"].to(torch.float32) * xc.to(torch.float32)
     y = (y * nn.silu(z.to(torch.float32))).to(x.dtype)
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))[:, None]
+    out = nn.dense(y, p["out_proj"])[:, None]
     return x + out, {"state": hst, "conv": new_tail}
 
 
@@ -262,18 +257,39 @@ def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
     """x: (B, S, d) -> (y, cache | None), through the elementwise chunk body
     (``ssm_algo="scan"``) or the SSD matmul form (``"ssd"``, zamba2's), as
     JAX picks."""
-    bsz, s, _ = x.shape
-    di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     h = nn.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = torch.matmul(h, p["in_proj"].to(h.dtype))
+    zxbcdt = nn.dense(h, p["in_proj"])
     z, xbc_raw, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     xbc = nn.silu(causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
     xi, bb, cc = torch.split(xbc, [di, n, n], dim=-1)
     xi = logical_constraint(xi, "act_batch", None, "ssm_inner")
 
     A = -torch.exp(p["A_log"].to(torch.float32))  # (H,)
-    d_skip = p["D"].to(torch.float32)
-    dt_b = p["dt_b"].to(torch.float32)
+    y, h_last = mamba2_scan(cfg, xi, bb, cc, dt_raw, A, p["D"].to(torch.float32),
+                            p["dt_b"].to(torch.float32))
+    y = nn.rms_norm(
+        (y.to(torch.float32) * nn.silu(z.to(torch.float32))).to(x.dtype), p["norm"], cfg.norm_eps
+    )
+    out = nn.dense(y, p["out_proj"])
+
+    cache = None
+    if make_cache:
+        cache = {"state": h_last, "conv": _conv_tail(xbc_raw, cfg.ssm_conv)}
+    return x + out, cache
+
+
+def mamba2_scan(cfg: ModelConfig, xi, bb, cc, dt_raw, A, d_skip, dt_b):
+    """Mamba2's recurrence over the whole sequence: xi (B, S, H·P), bb, cc
+    (B, S, N), dt_raw (B, S, H), and A, D, dt bias (H,) f32 -> (y (B, S,
+    H·P) in xi's dtype, h_last (B, H, P, N) f32), through the elementwise
+    chunk body (``ssm_algo="scan"``) or the SSD matmul form (``"ssd"``,
+    zamba2's), as JAX picks.  DTensors run on each rank's batch rows and
+    SSM heads (:func:`_mamba2_scan_sharded`)."""
+    if nn.is_dtensor(xi):
+        return _mamba2_scan_sharded(cfg, xi, bb, cc, dt_raw, A, d_skip, dt_b)
+    bsz, nh, hp, n = xi.shape[0], A.shape[0], cfg.ssm_head_dim, bb.shape[-1]
+    di = nh * hp
 
     def body_scan(h_in, inputs):
         """The elementwise associative scan over (B, c, H, P, N) states."""
@@ -286,7 +302,7 @@ def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
         h_all, h_out = intra_chunk_scan(da[..., None, None].expand(dbx.shape), dbx, h_in)
         y = torch.einsum("bshpn,bsn->bshp", h_all, cc_c.to(torch.float32))
         y = y + d_skip[:, None] * xh
-        return h_out, y.reshape(bsz, c, di).to(x.dtype)
+        return h_out, y.reshape(bsz, c, di).to(xi.dtype)
 
     def body_ssd(h_in, inputs):
         """The SSD (matmul) form of the same recurrence: (B, c, c, H)
@@ -304,7 +320,7 @@ def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
         bbf, ccf = bb_c.to(torch.float32), cc_c.to(torch.float32)
         # intra-chunk: y_i += sum_{j<=i} exp(cs_i - cs_j) dt_j (C_i.B_j) x_j
         diff = cs[:, :, None, :] - cs[:, None, :, :]  # (B, c, c, H), <= 0 on tril
-        tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+        tril = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xi.device))
         L = torch.exp(diff.masked_fill(~tril[None, :, :, None], float("-inf")))
         L = L * dt[:, None, :, :]  # decay * dt_j
         G = torch.einsum("bin,bjn->bij", ccf, bbf)  # (B, c, c) C_i . B_j
@@ -317,21 +333,43 @@ def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, *, make_cache: bool = F
         decay_end = torch.exp(cs[:, -1:, :] - cs) * dt  # (B, c, H)
         h_out = torch.exp(cs[:, -1, :])[..., None, None] * h_in + torch.einsum(
             "bch,bchp,bcn->bhpn", decay_end, xh, bbf)
-        return h_out, y.reshape(bsz, c, di).to(x.dtype)
+        return h_out, y.reshape(bsz, c, di).to(xi.dtype)
 
     body = body_ssd if cfg.ssm_algo == "ssd" else body_scan
     chunk = SCAN_CHUNK if cfg.ssm_algo == "ssd" else SCAN_CHUNK // 4
-    h0 = torch.zeros((bsz, nh, hp, n), dtype=torch.float32, device=x.device)
-    y, h_last = run_chunked_scan((xi, bb, cc, dt_raw), h0, chunk, body)
-    y = nn.rms_norm(
-        (y.to(torch.float32) * nn.silu(z.to(torch.float32))).to(x.dtype), p["norm"], cfg.norm_eps
-    )
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    h0 = torch.zeros((bsz, nh, hp, n), dtype=torch.float32, device=xi.device)
+    return run_chunked_scan((xi, bb, cc, dt_raw), h0, chunk, body)
 
-    cache = None
-    if make_cache:
-        cache = {"state": h_last, "conv": _conv_tail(xbc_raw, cfg.ssm_conv)}
-    return x + out, cache
+
+def _mamba2_scan_sharded(cfg: ModelConfig, xi, bb, cc, dt_raw, A, d_skip, dt_b):
+    """:func:`mamba2_scan` on local blocks: batch rows where xi's rows are
+    split, SSM heads over the mesh dims that split xi's channels where the
+    heads divide (whole elsewhere), B and C whole over the heads; their
+    gradients, and those of A, D and the dt bias, are partial sums over the
+    mesh dims that split the other operand."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.runtime.sharding import from_block, to_block
+
+    mesh, nh = xi.device_mesh, A.shape[0]
+    rows = [p == Shard(0) for p in xi.placements]
+    split = [p == Shard(2) for p in xi.placements]
+    ways = 1
+    for i, s in enumerate(split):
+        ways *= mesh.size(i) if s else 1
+    heads = split if nh % ways == 0 else [False] * mesh.ndim
+    R = Replicate()
+    xpl = [Shard(0) if r else Shard(2) if h else R for r, h in zip(rows, heads)]
+    bpl = [Shard(0) if r else R for r in rows]
+    bgrad = [Shard(0) if r else Partial() if h else R for r, h in zip(rows, heads)]
+    apl = [Shard(0) if h else R for h in heads]
+    agrad = [Partial() if r else q for r, q in zip(rows, apl)]
+    y, h_last = mamba2_scan(
+        cfg, to_block(xi, xpl), to_block(bb, bpl, bgrad), to_block(cc, bpl, bgrad),
+        to_block(dt_raw, xpl), *(to_block(t, apl, agrad) for t in (A, d_skip, dt_b)))
+    hpl = [Shard(1) if q == Shard(2) else q for q in xpl]
+    return (from_block(y, mesh, xpl, xi.shape),
+            from_block(h_last, mesh, hpl, (xi.shape[0], nh, cfg.ssm_head_dim, bb.shape[-1])))
 
 
 def mamba2_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
@@ -339,7 +377,7 @@ def mamba2_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     bsz = x.shape[0]
     di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     h = nn.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = torch.matmul(h, p["in_proj"].to(h.dtype))[:, 0]
+    zxbcdt = nn.dense(h, p["in_proj"])[:, 0]
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     xbc_c, new_tail = causal_conv_step(xbc, cache["conv"], p["conv_w"], p["conv_b"])
     xbc_c = nn.silu(xbc_c)
@@ -356,7 +394,7 @@ def mamba2_decode(cfg: ModelConfig, p, x: torch.Tensor, cache):
     y = nn.rms_norm(
         (y * nn.silu(z.to(torch.float32))).to(x.dtype), p["norm"], cfg.norm_eps
     )
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))[:, None]
+    out = nn.dense(y, p["out_proj"])[:, None]
     return x + out, {"state": hst, "conv": new_tail}
 
 

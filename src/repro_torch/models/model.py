@@ -97,7 +97,7 @@ def logits_at(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     result, never rounded to bf16: what XLA compiles ``einsum(...).astype(f32)``
     to (products of bf16 values are exact in f32)."""
     w = _head_weight(cfg, params).to(COMPUTE_DTYPE)
-    return torch.matmul(hidden.to(COMPUTE_DTYPE).to(torch.float32), w.to(torch.float32))
+    return nn.dense(hidden.to(COMPUTE_DTYPE).to(torch.float32), w)
 
 
 # --------------------------------------------------------------------------
@@ -181,7 +181,7 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *, trainin
     nll_sum, z_sum, cnt = zero, zero, zero
     for i in range(0, s, chunk):
         h_c, l_c = hidden[:, i:i + chunk], labels[:, i:i + chunk]
-        logits = torch.matmul(h_c.to(COMPUTE_DTYPE).to(torch.float32), w)
+        logits = nn.dense(h_c.to(COMPUTE_DTYPE).to(torch.float32), w)
         logits = nn.logical_constraint(logits, "act_batch", None, "vocab")
         logz = torch.logsumexp(logits, dim=-1)
         ll = _label_logit(logits, l_c.clamp_min(0))

@@ -14,7 +14,7 @@ through it as through JAX's scatter-set.  Named ranges (``moe.route``,
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +82,7 @@ def route(p, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     tg = x.shape[0]
     e, k = cfg.num_experts, cfg.top_k
     cap = _capacity(tg, cfg)
-    logits = torch.matmul(x.to(torch.float32), p["router"].to(torch.float32))
+    logits = nn.dense(x.to(torch.float32), p["router"])
     probs = torch.softmax(logits, dim=-1)  # (Tg, E) f32
     gates, idx = top_k(probs, k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
@@ -97,8 +97,17 @@ def route(p, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     return Routing(gates, idx, torch.where(keep, pos, cap), keep, aux, cap)
 
 
-def _dispatch_group(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (Tg, d) -> (y: (Tg, d), aux_loss: scalar)."""
+def _experts(p, xs: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs over the dispatch buffer xs (E, C, d) -> (E, C, d)."""
+    xg = torch.bmm(xs, p["w_gate"].to(xs.dtype))
+    xu = torch.bmm(xs, p["w_up"].to(xs.dtype))
+    return torch.bmm(nn.silu(xg) * xu, p["w_down"].to(xs.dtype))
+
+
+def _dispatch_group(p, x: torch.Tensor, cfg: ModelConfig,
+                    experts: Callable = _experts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (Tg, d) -> (y: (Tg, d), aux_loss: scalar).  ``experts(p, xs)`` maps
+    the dispatch buffer xs (E, C, d) to the experts' outputs."""
     tg, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     with record_function("moe.route"):
@@ -110,13 +119,8 @@ def _dispatch_group(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         slot = torch.where(r.keep, e_flat * cap + r.pos, e * cap)  # e * cap: the drop slot
         xs = x.new_zeros((e * cap + 1, d)).index_put((slot,), x[tok_flat])
         xs = xs[:e * cap].view(e, cap, d)
-        # keep the scattered dispatch buffer replicated: the expert products
-        # below induce the expert sharding
-        xs = nn.logical_constraint(xs, None, None, None)
     with record_function("moe.experts"):
-        xg = torch.bmm(xs, p["w_gate"].to(x.dtype))
-        xu = torch.bmm(xs, p["w_up"].to(x.dtype))
-        ys = torch.bmm(nn.silu(xg) * xu, p["w_down"].to(x.dtype))
+        ys = experts(p, xs)
     with record_function("moe.dispatch"):
         y_tok = torch.cat([ys.reshape(e * cap, d), ys.new_zeros((1, d))])[slot]  # (Tg*K, d)
         y_tok = y_tok * (r.gates.reshape(-1).to(x.dtype) * r.keep.to(x.dtype))[:, None]
@@ -127,17 +131,77 @@ def _dispatch_group(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).  Token groups bound dispatch memory;
-    where JAX scans the groups, the port loops over them."""
+    where JAX scans the groups, the port loops over them.  A DTensor ``x``
+    dispatches on local blocks (:func:`_apply_moe_sharded`)."""
+    if nn.is_dtensor(x):
+        return _apply_moe_sharded(p, x, cfg)
+    y, aux = _routed(p, x, cfg)
+    if cfg.num_shared_experts:
+        y = y + nn.swiglu(x, p["shared_gate"], p["shared_up"], p["shared_down"])
+    return y, aux
+
+
+def _routed(p, x: torch.Tensor, cfg: ModelConfig, experts: Callable = _experts):
+    """The routed experts over x (B, S, d) in groups of its flattened tokens
+    -> (y, the groups' summed aux loss), on plain tensors."""
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     g = n_groups(xf.shape[0], cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ys = []
     for xi in xf.reshape(g, -1, d).unbind(0):
-        yi, aux = _dispatch_group(p, xi, cfg)
+        yi, aux = _dispatch_group(p, xi, cfg, experts)
         aux_total = aux_total + aux
         ys.append(yi)
-    y = torch.cat(ys).reshape(b, s, d)
+    return torch.cat(ys).reshape(b, s, d), aux_total / g
+
+
+def _apply_moe_sharded(p, x: torch.Tensor, cfg: ModelConfig):
+    """``apply_moe`` on a mesh.  The groups are JAX's, contiguous slices of
+    the flattened tokens: where each rank's batch rows hold whole groups,
+    each rank routes and dispatches its own groups, else every rank all of
+    them.  The experts run where the rules put them (split over ``model``
+    where the count divides): each rank takes its experts' slice of the
+    dispatch buffer, runs their products, and the slices are gathered back
+    before the combine, so each group's value is the one device's.  The
+    router's and the experts' gradients are partial sums over the mesh dims
+    that split the groups.  -> (y laid out as the token rows, aux
+    replicated)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.runtime.sharding import from_block, to_block
+
+    mesh = x.device_mesh
+    b, s = x.shape[:2]
+    R = Replicate()
+    rows = [q == Shard(0) for q in x.placements]
+    n_rows = 1
+    for i, r in enumerate(rows):
+        n_rows *= mesh.size(i) if r else 1
+    tg = b * s // n_groups(b * s, cfg)
+    if b % n_rows or (b // n_rows * s) % tg:
+        rows, n_rows = [False] * mesh.ndim, 1
+    xpl = [Shard(0) if r else R for r in rows]
+    ep = [q == Shard(0) and not r for q, r in zip(p["w_gate"].placements, rows)]
+    wpl = [Shard(0) if e else R for e in ep]
+    local = {"router": to_block(p["router"], [R] * mesh.ndim,
+                                [Partial() if r else R for r in rows])}
+    for name in ("w_gate", "w_up", "w_down"):
+        local[name] = to_block(p[name], wpl, [Partial() if r else q for r, q in zip(rows, wpl)])
+    # a group's buffer, stacked over the ranks that hold other groups
+    whole = [Shard(0) if r else R for r in rows]
+    split = [Shard(0) if r else Shard(1) if e else R for r, e in zip(rows, ep)]
+
+    def experts(q, xs):
+        shape = (n_rows, *xs.shape)
+        mine = to_block(from_block(xs[None], mesh, whole, shape), split)[0]
+        ys = _experts(q, mine)
+        return to_block(from_block(ys[None], mesh, split, shape), whole)[0]
+
+    y, aux = _routed(local, to_block(x, xpl), cfg, experts)
+    y = from_block(y, mesh, xpl, x.shape)
+    aux = from_block(aux, mesh, [Partial() if r else R for r in rows], ())
+    aux = aux.redistribute(mesh, [R] * mesh.ndim) / n_rows
     if cfg.num_shared_experts:
         y = y + nn.swiglu(x, p["shared_gate"], p["shared_up"], p["shared_down"])
-    return y, aux_total / g
+    return y, aux

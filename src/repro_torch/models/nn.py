@@ -223,11 +223,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The weight product ``x @ w``: x (..., K), w (K, N) cast to x's dtype.
+    On a mesh (a DTensor operand) it runs on each rank's local blocks, laid
+    out by the weight's own placements as JAX's rules lay out a weight
+    product (``runtime.sharding.weight_product``): the activations keep only
+    their batch shards, a column-parallel product leaves its result split
+    over ``model`` on the last dim, a row-parallel one reduces its partial
+    sums to whole rows.  DTensor's own propagation would carry a partial sum
+    into the next norm and split rows over ``model`` where JAX never does,
+    which later products and reshapes cannot take."""
+    w = w.to(x.dtype)
+    if is_dtensor(x) or is_dtensor(w):
+        from repro_torch.runtime.sharding import weight_product
+
+        return weight_product(x, w)
+    return torch.matmul(x, w)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, w_gate.to(x.dtype))
-    u = torch.matmul(x, w_up.to(x.dtype))
-    return torch.matmul(silu(g) * u, w_down.to(x.dtype))
+    g = dense(x, w_gate)
+    u = dense(x, w_up)
+    return dense(silu(g) * u, w_down)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -252,17 +270,20 @@ def sinusoidal_pos(seq_len: int, d_model: int, offset: int = 0, device=None) -> 
     position.  The division is a product with the f32 reciprocal of the
     correctly rounded power, as XLA compiles JAX's under jit (dividing moves
     an angle by an ulp: up to 1.2e-4 in sin/cos near position 2048); sin and
-    cos are taken in f64 and rounded.  On the CPU numpy takes them: torch's
-    multithreaded f64 sin there rounds some rows differently from one
-    process to the next."""
+    cos are taken in f64 and rounded.  On the CPU numpy builds the whole
+    table: torch's multithreaded f64 sin there rounds some rows differently
+    from one process to the next.  Under a ``FakeTensorMode`` (a dry run)
+    torch builds it on ``device``, as on the card: only its shape is read."""
     dev = torch.device("cpu" if device is None else device)
     inv = np.reciprocal(np.power(10_000.0, np.arange(0, d_model, 2) / d_model).astype(np.float32))
+    faking = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+    if dev.type == "cpu" and not faking:
+        ang = ((np.arange(seq_len) + offset).astype(np.float32)[:, None] * inv).astype(np.float64)
+        table = np.stack([np.sin(ang), np.cos(ang)], axis=-1).reshape(seq_len, d_model)
+        return torch.from_numpy(table.astype(np.float32))
     pos = (torch.arange(seq_len, device=dev) + offset).to(torch.float32)[:, None]
     ang = (pos * torch.from_numpy(inv).to(dev)).to(torch.float64)
-    if dev.type == "cpu":
-        sin, cos = torch.from_numpy(np.sin(ang.numpy())), torch.from_numpy(np.cos(ang.numpy()))
-    else:
-        sin, cos = torch.sin(ang), torch.cos(ang)
+    sin, cos = torch.sin(ang), torch.cos(ang)
     return torch.stack([sin, cos], dim=-1).reshape(seq_len, d_model).to(torch.float32)
 
 
@@ -293,15 +314,21 @@ def attention(
     ``kv_len``: if given, keys at positions >= kv_len are masked (ring buffers
     / partially-filled caches).  DTensors attend on each rank's batch rows
     and q heads (``runtime.sharding.head_shards``), unless the keys are split
-    over their positions (a decode cache on ``kv_seq``).
+    over their positions (a decode cache on ``kv_seq``): then q is whole over
+    its heads, as the cache rules' decode layout has it, and DTensor's
+    products split the scores over the keys' positions.
     """
     if is_dtensor(q):
-        from repro_torch.runtime.sharding import head_shards, is_sharded
+        from torch.distributed.tensor import Replicate, Shard
 
-        if not is_sharded(k, 1):  # else a cache split over its positions: DTensor's products
+        from repro_torch.runtime.sharding import head_shards, is_sharded, with_placements
+
+        if not is_sharded(k, 1):
             ql, kl, vl, wrap = head_shards(q, k, v)
             return wrap(attention(ql, kl, vl, causal=causal, window=window, chunk=chunk,
                                   q_offset=q_offset, kv_len=kv_len, scale=scale))
+        q = with_placements(q, q.device_mesh,
+                            tuple(p if p == Shard(0) else Replicate() for p in q.placements))
     b, sq, h, dh = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
@@ -418,9 +445,9 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     value is the same.  Its backward scatters into the local rows only."""
     if not is_dtensor(table):
         return table[ids]
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    from repro_torch.runtime.sharding import contiguous_stride, local_range, with_placements
+    from repro_torch.runtime.sharding import from_block, local_range, with_placements
 
     mesh = table.device_mesh
     if not is_dtensor(ids):
@@ -443,9 +470,7 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     # every rank (DTensor keeps it so), which is each partial row's gradient
     out = tuple(Shard(0) if q == Shard(0) else (Partial() if p == Shard(0) else Replicate())
                 for p, q in zip(tpl, ipl))
-    shape = (*ids.shape, table.shape[1])
-    return DTensor.from_local(rows, mesh, out, run_check=False, shape=shape,
-                              stride=contiguous_stride(shape))
+    return from_block(rows, mesh, out, (*ids.shape, table.shape[1]))
 
 
 def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -464,6 +489,22 @@ def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
                        for p in x.placements)
             x = x.redistribute(x.device_mesh, pl)
     return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """(..., n, m) -> (..., n * m), the inverse of :func:`split_last`.  A
+    DTensor keeps only its splits of dim 0 and of the ``n`` dim: a split of
+    any other dim would become a strided split of the merged one, which no
+    later product takes."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        from repro_torch.runtime.sharding import with_placements
+
+        keep = (Shard(0), Shard(x.ndim - 2))
+        x = with_placements(x, x.device_mesh,
+                            tuple(p if p in keep else Replicate() for p in x.placements))
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
 def set_index(buf: torch.Tensor, dim: int, i: int, val: torch.Tensor) -> None:

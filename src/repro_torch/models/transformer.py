@@ -135,9 +135,9 @@ def gqa_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor, *,
             decode: bool = False):
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = nn.split_last(torch.matmul(x, p["wq"].to(x.dtype)), h)
-    k = nn.split_last(torch.matmul(x, p["wk"].to(x.dtype)), kvh)
-    v = nn.split_last(torch.matmul(x, p["wv"].to(x.dtype)), kvh)
+    q = nn.split_last(nn.dense(x, p["wq"]), h)
+    k = nn.split_last(nn.dense(x, p["wk"]), kvh)
+    v = nn.split_last(nn.dense(x, p["wv"]), kvh)
     if cfg.qk_norm:
         q = nn.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = nn.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -179,7 +179,7 @@ def gqa_attn_forward(
         o = nn.attention(q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk)
     else:
         o = flash_attention(q, k, v, causal=causal, window=window)
-    out = torch.matmul(o.reshape(o.shape[0], o.shape[1], -1), p["wo"].to(x.dtype))
+    out = nn.dense(nn.merge_last(o), p["wo"])
     cache = None
     if make_cache:
         w = _cache_window(cfg, k.shape[1])
@@ -223,7 +223,7 @@ def gqa_attn_decode(
         o = nn.attention(
             q, k, v, causal=False, window=0, chunk=cfg.attn_chunk, kv_len=pos + 1
         )
-    out = torch.matmul(o.reshape(o.shape[0], 1, -1), p["wo"].to(x.dtype))
+    out = nn.dense(nn.merge_last(o), p["wo"])
     return out, {"k": k, "v": v}
 
 
@@ -246,16 +246,14 @@ def _decode_attn_abs(cfg, q, k, v, kv_positions, valid):
 
 
 def mla_project_q(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
-    b, s, _ = x.shape
-    q = torch.matmul(x, p["wq"].to(x.dtype))
-    q = q.reshape(b, s, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = nn.split_last(nn.dense(x, p["wq"]), cfg.num_heads)
     q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     return q_nope, nn.apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def mla_compress_kv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     """-> (ckv (B, S, R) normed, k_rope (B, S, rope) rotated): what the cache holds."""
-    ckv_rope = torch.matmul(x, p["w_dkv"].to(x.dtype))
+    ckv_rope = nn.dense(x, p["w_dkv"])
     ckv, k_rope = torch.split(ckv_rope, [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     ckv = nn.rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
     k_rope = nn.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
@@ -271,15 +269,15 @@ def mla_attn_forward(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tens
     h = cfg.num_heads
     q_nope, q_rope = mla_project_q(cfg, p, x, positions)
     ckv, k_rope = mla_compress_kv(cfg, p, x, positions)
-    k_nope = torch.matmul(ckv, p["w_uk"].to(x.dtype)).reshape(b, s, h, cfg.qk_nope_dim)
-    v = torch.matmul(ckv, p["w_uv"].to(x.dtype)).reshape(b, s, h, cfg.v_head_dim)
+    k_nope = nn.split_last(nn.dense(ckv, p["w_uk"]), h)
+    v = nn.split_last(nn.dense(ckv, p["w_uv"]), h)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
     q = logical_constraint(q, "act_batch", None, "heads", None)
     k = logical_constraint(k, "act_batch", None, "heads", None)
     with record_function("mla.attention"):
         o = nn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    out = torch.matmul(o.reshape(b, s, -1), p["wo"].to(x.dtype))
+    out = nn.dense(nn.merge_last(o), p["wo"])
     cache = {"ckv": ckv, "krope": k_rope} if make_cache else None
     return out, cache
 
@@ -290,8 +288,7 @@ def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch
     in f32, over the (B, S, R + rope) cache; ``w_uk`` is folded into q and
     ``w_uv`` applied after the softmax.  Writes the new ``ckv``/``krope`` row
     into ``cache`` in place; keys past ``pos`` are masked."""
-    b = x.shape[0]
-    h, r = cfg.num_heads, cfg.kv_lora_rank
+    h = cfg.num_heads
     positions = torch.tensor([pos], device=x.device)
     q_nope, q_rope = mla_project_q(cfg, p, x, positions)  # (B, 1, H, *)
     ckv_new, krope_new = mla_compress_kv(cfg, p, x, positions)
@@ -299,7 +296,7 @@ def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch
     nn.set_index(ckv, 1, pos, ckv_new[:, 0])
     nn.set_index(krope, 1, pos, krope_new[:, 0])
 
-    w_uk = p["w_uk"].reshape(r, h, cfg.qk_nope_dim).to(x.dtype)
+    w_uk = nn.split_last(p["w_uk"], h).to(x.dtype)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # absorb the k up-projection
     with record_function("mla.attention"):
         ckv32 = ckv.to(torch.float32)
@@ -311,9 +308,9 @@ def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch
         scores = scores.masked_fill((kv_pos > pos)[None, None, :], nn.NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhs,bsr->bhr", probs, ckv32).to(x.dtype)
-    w_uv = p["w_uv"].reshape(r, h, cfg.v_head_dim).to(x.dtype)
+    w_uv = nn.split_last(p["w_uv"], h).to(x.dtype)
     o = torch.einsum("bhr,rhd->bhd", ctx, w_uv)  # absorb the v up-projection
-    out = torch.matmul(o.reshape(b, -1), p["wo"].to(x.dtype))[:, None, :]
+    out = nn.dense(nn.merge_last(o), p["wo"])[:, None, :]
     return out, {"ckv": ckv, "krope": krope}
 
 

@@ -189,7 +189,7 @@ def head_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     and each rank keeps the KV heads its q heads read (one KV head a q head
     where its q heads do not start and end on a group boundary).  All of it
     is differentiable."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
     qpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
@@ -219,12 +219,159 @@ def head_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             idx = torch.arange(lo, lo + n, device=kl.device) // group
         kl, vl = kl[:, :, idx], vl[:, :, idx]
     shape = (*q.shape[:3], v.shape[3])
+    return ql, kl, vl, lambda out: from_block(out, mesh, qpl, shape)
 
-    def wrap(out: torch.Tensor):
-        return DTensor.from_local(out.contiguous(), mesh, qpl, run_check=False, shape=shape,
-                                  stride=contiguous_stride(shape))
 
-    return ql, kl, vl, wrap
+def as_dtensor(x: torch.Tensor, mesh):
+    """``x`` itself if a DTensor, else the plain tensor (the same on every
+    rank) as a replicated DTensor on ``mesh``, whose gradient is summed over
+    the ranks that use it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if nn.is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+
+
+def to_block(x: torch.Tensor, placements, grad_placements=None) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` laid out by ``placements``, as
+    a plain tensor; ``grad_placements`` says how the block's gradient lies
+    (default: as ``placements``; ``Partial`` where each rank's gradient holds
+    only its own part of the work)."""
+    x = with_placements(x, x.device_mesh, placements)
+    return x.to_local(grad_placements=None if grad_placements is None else tuple(grad_placements))
+
+
+def from_block(block: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """The DTensor of global ``shape`` whose block on this rank is ``block``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    return DTensor.from_local(block.contiguous(), mesh, tuple(placements), run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def weight_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., K), w (K, N)) on local blocks, for ``nn.dense``.
+    On a data-parallel mesh dim (any but ``model``) that splits x's rows, w
+    is gathered there (FSDP).  On any other mesh dim w keeps its split: over
+    N, x is whole there and the result is split over N; over K, x is split
+    over K and each rank's partial sums are reduced to the whole product;
+    with w whole, x keeps a split of its rows.  Differentiable: each block's
+    gradient is declared as the ranks hold it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = (w if nn.is_dtensor(w) else x).device_mesh
+    x, w = as_dtensor(x, mesh), as_dtensor(w, mesh)
+    last, k, n = x.ndim - 1, w.ndim - 2, w.ndim - 1
+    names = mesh.mesh_dim_names
+    xpl, wpl, opl, xgrad, wgrad = [], [], [], [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        rows = xp == Shard(0) and last > 0
+        if not isinstance(wp, Shard) or (rows and names[i] != "model"):
+            wp = Replicate()
+        if wp == Shard(k):
+            xq, oq, xg, wg = Shard(last), Partial(), Shard(last), wp
+        elif wp == Shard(n):
+            xq, oq, xg, wg = Replicate(), Shard(last), Partial(), wp
+        elif rows:  # each rank's w gradient sums its own rows only
+            xq, oq, xg, wg = Shard(0), Shard(0), Shard(0), Partial()
+        else:
+            xq = oq = xg = wg = Replicate()
+        xpl.append(xq)
+        wpl.append(wp)
+        opl.append(oq)
+        xgrad.append(xg)
+        wgrad.append(wg)
+    layout = (mesh, tuple(xpl), tuple(wpl), tuple(opl), tuple(xgrad), tuple(wgrad))
+    if any(_spans(mesh, pl) for pl in layout[3:]):
+        return _BlockProduct.apply(x, w, layout)
+    xl, wl = to_block(x, xpl, xgrad), to_block(w, wpl, wgrad)
+    out = from_block(torch.matmul(xl, wl), mesh, opl, (*x.shape[:-1], w.shape[-1]))
+    return out.redistribute(mesh, _whole(opl)) if _whole(opl) != tuple(opl) else out
+
+
+def _whole(placements) -> tuple:
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(Replicate() if isinstance(p, Partial) else p for p in placements)
+
+
+def _spans(mesh, placements) -> bool:
+    """Whether a block laid out by ``placements`` is a partial sum over more
+    than one rank."""
+    from torch.distributed.tensor import Partial
+
+    return any(isinstance(p, Partial) and mesh.size(i) > 1 for i, p in enumerate(placements))
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D ``a`` and ``b`` (one dtype), summed and returned in
+    f32: the products of bf16 values are exact in f32, and the card's bf16
+    GEMM writes its f32 sums out as they are."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()  # torch has no bf16 -> f32 product on the CPU
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, f32: bool) -> torch.Tensor:
+    return mm_f32(a, b) if f32 else a @ b
+
+
+class _BlockProduct(torch.autograd.Function):
+    """``weight_product`` on local blocks where a block of the result or of a
+    gradient is a partial sum over ranks (a row-parallel result, the input
+    gradient of a column-parallel product, an FSDP weight gradient).  Each
+    such block is summed in f32 and reduced in f32, then rounded once, as one
+    device rounds each whole sum once (rounded to bf16 before they were
+    reduced, 4-way TP moved falcon-mamba's and zamba2's logits by 0.3 and
+    zamba2's gradient leaves by 0.17 of their magnitude).  A weight whole on
+    a mesh dim keeps its gradient a partial sum there, reduced once a leaf
+    after the backward, in the leaf's dtype (the data-parallel sync).  Every
+    other block is the product one device computes, in the operands' dtype.
+    ``layout``: (mesh, x's, w's and the result's block placements, x's and
+    w's gradient block placements), as ``weight_product`` lays them out."""
+
+    @staticmethod
+    def forward(ctx, x, w, layout):
+        mesh, xpl, wpl, opl, _, _ = layout
+        xl = with_placements(x, mesh, xpl).to_local()
+        wl = with_placements(w, mesh, wpl).to_local()
+        ctx.save_for_backward(xl, wl)
+        ctx.layout = layout
+        ctx.inputs = ((x.placements, x.shape, x.dtype), (w.placements, w.shape, w.dtype))
+        out = _mm(xl.reshape(-1, xl.shape[-1]), wl, _spans(mesh, opl))
+        out = from_block(out.reshape(*xl.shape[:-1], -1), mesh, opl, (*x.shape[:-1], w.shape[-1]))
+        return out.redistribute(mesh, _whole(opl)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+
+        xl, wl = ctx.saved_tensors
+        mesh, _, _, opl, xgrad, wgrad = ctx.layout
+        (xp, xshape, xdtype), (wp, wshape, wdtype) = ctx.inputs
+        gl = with_placements(g, mesh, _whole(opl)).to_local().to(xl.dtype)
+        gl = gl.reshape(-1, gl.shape[-1])
+        gx = _mm(gl, wl.transpose(0, 1), _spans(mesh, xgrad)).reshape(xl.shape)
+        gw = _mm(xl.reshape(-1, xl.shape[-1]).transpose(0, 1), gl, _spans(mesh, wgrad))
+        # a weight whole on a mesh dim keeps its gradient partial there (the
+        # leaf's one data-parallel sync reduces it); x takes its gradient
+        # whole where it is a partial sum itself, as DTensor's own
+        # redistribution gives it
+        wkeep = tuple(q if isinstance(q, Partial) and p == Replicate() else p
+                      for q, p in zip(wgrad, wp))
+        return (_grad(gx, mesh, xgrad, _whole(xp), xshape, xdtype),
+                _grad(gw, mesh, wgrad, wkeep, wshape, wdtype), None)
+
+
+def _grad(block, mesh, placements, target, shape, dtype) -> torch.Tensor:
+    """The gradient whose block here is ``block`` (laid out by
+    ``placements``), redistributed to ``target``, then cast to ``dtype``."""
+    grad = from_block(block, mesh, placements, shape).redistribute(mesh, target)
+    return from_block(grad.to_local().to(dtype), mesh, target, shape)
 
 
 def is_sharded(x: torch.Tensor, dim: int) -> bool:
@@ -250,12 +397,8 @@ def place_as(x: torch.Tensor, mesh, placements):
     """The global tensor ``x`` (the same on every rank) as a DTensor with
     ``placements`` on ``mesh``: each rank keeps a copy of only its own block,
     so the global tensor can be released."""
-    from torch.distributed.tensor import DTensor
-
-    placements = tuple(placements)
     local = local_slice(x, mesh, placements).clone(memory_format=torch.contiguous_format)
-    return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=x.shape, stride=contiguous_stride(x.shape))
+    return from_block(local, mesh, placements, x.shape)
 
 
 def place(x: torch.Tensor, sharding: NamedSharding):

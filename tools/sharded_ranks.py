@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
-"""h2o-danube-1.8b trained and served sharded over a mesh of ranks, one
+"""Every model family trained and served sharded over a mesh of ranks, one
 process a card, against the same runs on one card.
 
     python3 tools/sharded_ranks.py                          # 4 ranks, 4 cards, NCCL
     python3 tools/sharded_ranks.py --device cpu --reduced   # 4 gloo ranks, CPU
+    python3 tools/sharded_ranks.py --train-archs zamba2-1.2b,falcon-mamba-7b,\
+        deepseek-v2-lite-16b,whisper-base --meshes 2x2 --grads-meshes 2x2 \
+        --serve-archs falcon-mamba-7b,zamba2-1.2b,deepseek-v2-lite-16b,whisper-base \
+        --serve-meshes 1x4,2x2
 
 Checks, in order (rank 0 prints one JSON line each):
-  * ``step``: the DaeMon step (``make_train_step(movement="daemon")``,
+  * ``step``: for each arch of ``--train-archs`` (default h2o-danube-1.8b),
+    the DaeMon step (``make_train_step(movement="daemon")``,
     DAEMON_AGGRESSIVE) from the seeded master, ``--steps`` steps of
-    ``--batch`` x ``--seq`` from the token pipeline, on each mesh of
-    ``--meshes`` (data x model) against the same steps on one card (rank 0
-    alone; ``--ref-microbatches`` splits its batch, so that B = 4 x 4096 fits
-    one card): the losses within LOSS_RTOL, ``step_s`` (median of the steps
-    after the first), per-card peak memory, the bytes of master, m, v and
-    residual each rank holds against the whole, and K1/K2/K3 launches a step
-    on each rank (K1 = K2 = 18, one per foldable gradient and page-class
-    weight; K3 none);
-  * ``serve``: ``serve`` of each arch in ``--serve-archs`` on each mesh of
+    ``--batch`` x ``--seq`` from the token pipeline (whisper-base at full
+    size: 16 x 1024, its single-card phase's; zero frames or patches as the
+    stub frontends), on each mesh of ``--meshes`` (data x model) against the
+    same steps on one card (rank 0 alone; ``--ref-microbatches`` splits its
+    batch, so that B = 4 x 4096 fits one card): the losses within LOSS_RTOL,
+    ``step_s`` (median of the steps after the first), per-card peak memory,
+    the bytes of master, m, v and residual each rank holds against the
+    whole, and K1/K2/K3/K4 launches a step on each rank (K1 = K2 = one per
+    foldable gradient and page-class weight, from the arch's specs: 18 for
+    danube; K3 and K4 none).  At full size falcon-mamba-7b trains its first
+    8 of 64 layers and deepseek-v2-lite-16b its first 4 of 27, as the
+    single-card phases of ``chip_smoke.py`` do;
+  * ``serve``: ``serve`` of each arch in ``--serve-archs`` at full width and
+    depth (whisper-base at B = 16 and 1500 frames) on each mesh of
     ``--serve-meshes`` against one card: the prefill's last logits within
     LOGIT_TOL, the first token equal wherever one card's top two logits are
     more than 2 x LOGIT_TOL apart, ``prefill_s``, ``decode_s_per_token``,
-    peak memory and K3/K4 launches on each rank;
-  * ``grads`` (``--grads-meshes``): the gradients of the loss at the
-    seeded bf16 working copy on the first batch, on each mesh against one
-    device: every leaf within GRAD_TOL of its largest one-device magnitude
-    (bf16 gradients summed in another order);
+    peak memory and K3/K4 launches on each rank (from the arch: K3 once per
+    GQA layer, per shared-block invocation, or per encoder layer and twice
+    per decoder layer; K4 once per Mamba1 layer);
+  * ``grads`` (``--grads-meshes``): for each train arch, the gradients of
+    the loss at the seeded bf16 working copy on the first batch, on each
+    mesh against one device (its batch split as the step's reference):
+    every leaf within GRAD_TOL of its largest one-device magnitude (bf16
+    gradients summed in another order);
   * ``driver`` (``--driver-meshes``): the ``train`` entry point (baseline
     movement; ``--init-npz`` gives its initial master, JAX's keys joined by
     "/") on each mesh against one device;
@@ -58,10 +71,22 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
+from chip_smoke import (  # noqa: E402  the single-card phases' cuts and shapes
+    AUDIO_BATCH,
+    AUDIO_PROMPT,
+    AUDIO_TRAIN_SEQ,
+    MOE_ARCH,
+    MOE_TRAIN_LAYERS,
+    SSM_ARCH,
+    SSM_TRAIN_LAYERS,
+)
+
 ARCH, SEED = "h2o-danube-1.8b", 0
+TRAIN_LAYERS = {SSM_ARCH: SSM_TRAIN_LAYERS, MOE_ARCH: MOE_TRAIN_LAYERS}  # at full size
 LOSS_RTOL = 1e-3  # tests/test_torch_train.py's loss tolerance
 LOGIT_TOL = 8e-2  # tests/test_torch_serve.py's logit tolerance
 GRAD_TOL = 5e-2  # of a leaf's largest one-device magnitude: bf16 gradients
+PROB_TOL = 2e-2  # tests/test_torch_moe.py's: the MoE router's probabilities
 KERNELS = ("block_quant.quantize", "block_quant.dequantize", "flash_attention.forward",
            "mamba_scan.forward")
 
@@ -85,9 +110,153 @@ def _reset_peak(torch, dev) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
 
 
-def run_steps(torch, cfg, mesh, a, dev, microbatches: int) -> dict:
+def train_config(arch: str, a):
+    """The arch's config as the training checks run it: reduced, or at full
+    width cut in depth as the single-card phases cut it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if a.reduced:
+        return cfg.reduced()
+    if arch in TRAIN_LAYERS:
+        return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
+    return cfg
+
+
+def train_shape(cfg, a):
+    """(batch, seq) of the training checks; a VLM's text is ``--seq`` less
+    its patch positions, so that the whole sequence is ``--seq`` long (its
+    training attention takes lengths its chunk divides)."""
+    if cfg.family == "audio" and not a.reduced:
+        return AUDIO_BATCH, AUDIO_TRAIN_SEQ
+    if cfg.family == "vlm":
+        return a.batch, a.seq - cfg.num_prefix_tokens
+    return a.batch, a.seq
+
+
+def serve_shape(cfg, a):
+    """(batch, prompt) of the serving checks."""
+    if cfg.family == "audio" and not a.reduced:
+        return AUDIO_BATCH, AUDIO_PROMPT
+    return a.serve_batch, a.prompt_len
+
+
+def step_launches(cfg) -> dict:
+    """K1/K2/K3/K4 launches a DAEMON_AGGRESSIVE step: K1 = K2 = one per
+    foldable gradient and one per page-class weight of the working copy,
+    decided on the global shapes; no K3 or K4 (training attends and scans
+    without them)."""
+    from repro_torch.core.movement.daemon_step import is_foldable, is_page_class
+    from repro_torch.models import model as M
+    from repro_torch.models import nn
+
+    shapes = [s.shape for s in nn.tree_leaves(M.model_specs(cfg))]
+    n = sum(is_foldable(s) for s in shapes) + sum(is_page_class(s) for s in shapes)
+    return {KERNELS[0]: n, KERNELS[1]: n, KERNELS[2]: 0, KERNELS[3]: 0}
+
+
+def prefill_launches(cfg) -> dict:
+    """K3/K4 launches of one prefill: K3 once per GQA attention layer (MLA
+    attends without it), once per shared-block invocation of the hybrid,
+    once per encoder layer and twice per decoder layer (self and cross) of
+    the enc-dec; K4 once per Mamba1 layer."""
+    from repro_torch.models import hybrid
+
+    k3 = 0
+    if cfg.family in ("dense", "vlm", "moe") and cfg.attn_kind != "mla":
+        k3 = cfg.num_layers
+    elif cfg.family == "hybrid":
+        k3 = hybrid.n_invocations(cfg)
+    elif cfg.family == "audio":
+        k3 = cfg.enc_layers + 2 * cfg.dec_layers
+    return {KERNELS[2]: k3, KERNELS[3]: cfg.num_layers if cfg.family == "ssm" else 0}
+
+
+class Routes:
+    """The MoE routes of a one-card run, recorded (``Routes()``), and
+    replayed on the mesh run (``Routes(recorded)``): each call of
+    ``models.moe.top_k`` there takes the recorded call whose probabilities
+    lie nearest its own (the same layer and group, also where a
+    rematerialised layer routes again in backward) and returns its experts
+    with the mesh run's own probabilities at them, tallying where the mesh
+    run alone would have chosen otherwise: a flip (an expert outside the one
+    card's top k) or a swap (the same experts in another order).  The
+    products on a mesh sum in another order, and random weights leave
+    near-tied experts whose order then flips, as between JAX and the port
+    (``tests/test_torch_moe.py::_Routes``); the probabilities are held
+    within PROB_TOL of the one card's, so a flip happens only at a near tie.
+    The identity outside a ``with`` block, and for a family without MoE."""
+
+    def __init__(self, recorded=None):
+        self.recorded = [] if recorded is None else recorded
+        self.replay = recorded is not None
+        self.calls = self.flips = self.swaps = 0
+        self.dist = 0.0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._real = moe.top_k
+        moe.top_k = self._top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.top_k = self._real
+
+    def _top_k(self, probs, k):
+        import numpy as np
+        import torch
+
+        vals, idx = self._real(probs, k)
+        p, own = probs.detach().float().cpu().numpy(), idx.cpu().numpy()
+        if not self.replay:
+            self.recorded.append((p, own))
+            return vals, idx
+        pr, ir = min((r for r in self.recorded if r[0].shape == p.shape),
+                     key=lambda r: float(np.abs(r[0] - p).max()))
+        self.calls += 1
+        self.dist = max(self.dist, float(np.abs(pr - p).max()))
+        for t in np.flatnonzero((own != ir).any(axis=1)):
+            flips = len(set(own[t]) - set(ir[t]))
+            self.flips += flips
+            self.swaps += int((own[t] != ir[t]).sum()) - flips
+        ref = torch.from_numpy(ir.copy()).to(device=idx.device, dtype=idx.dtype)
+        return probs.gather(-1, ref), ref
+
+    def stats(self) -> dict:
+        return {"route_calls": self.calls, "route_flips": self.flips,
+                "route_swaps": self.swaps, "route_prob_max_dist": self.dist}
+
+    def ok(self) -> bool:
+        return self.dist <= PROB_TOL
+
+
+def _routes(cfg, recorded=None):
+    """A :class:`Routes` for an MoE arch, else a context that does nothing."""
+    import contextlib
+
+    return Routes(recorded) if cfg.family == "moe" else contextlib.nullcontext()
+
+
+def _batch(torch, cfg, host_batch, dev):
+    """A pipeline batch on ``dev`` with the stub frontends' inputs."""
+    from repro_torch.models import model as M
+
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+    batch.update(M.stub_inputs(cfg, batch["tokens"]))
+    return batch
+
+
+def run_steps(torch, cfg, mesh, a, dev, microbatches: int, routes=None) -> dict:
     """``a.steps`` DAEMON_AGGRESSIVE steps from the seeded master, on ``mesh``
-    (None: this device alone)."""
+    (None: this device alone), routed by ``routes`` (see :class:`Routes`)."""
+    import contextlib
+
+    routes = routes or contextlib.nullcontext()
     from repro_torch.core import movement as mv
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import runtime
@@ -100,8 +269,9 @@ def run_steps(torch, cfg, mesh, a, dev, microbatches: int) -> dict:
     if mesh is not None:
         rules = shd.base_rules(mesh, fsdp=True)
         shd.activate(mesh, rules)
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=a.seq,
-                                    global_batch=a.batch, seed=SEED))
+    batch_size, seq = train_shape(cfg, a)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch_size, seed=SEED))
     try:
         specs = M.model_specs(cfg)
         master = nn.init_params(specs, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -116,18 +286,18 @@ def run_steps(torch, cfg, mesh, a, dev, microbatches: int) -> dict:
         losses, times, launches = [], [], []
         _reset_peak(torch, dev)
         for _ in range(a.steps):
-            batch = {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
-            batch.update(M.stub_inputs(cfg, batch["tokens"]))
+            batch = _batch(torch, cfg, next(pipe), dev)
             if mesh is not None:
                 batch = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
             runtime.reset_launches()
             _sync(torch, dev)
             t0 = time.perf_counter()
-            params, state, metrics = step(params, state, batch)
+            with routes:
+                params, state, metrics = step(params, state, batch)
             losses.append(float(metrics["loss"]))
             _sync(torch, dev)
             times.append(time.perf_counter() - t0)
-            launches.append({k: runtime.LAUNCHES[k] for k in KERNELS[:3]})
+            launches.append({k: runtime.LAUNCHES[k] for k in KERNELS})
 
         def local_bytes(tree):
             return sum((x.to_local() if nn.is_dtensor(x) else x).numel() * 4
@@ -166,15 +336,35 @@ def _split(x) -> int:
     return n
 
 
-def run_serve(torch, cfg, shape, a, dev) -> dict:
+def run_serve(torch, cfg, shape, a, dev, routes) -> dict:
+    """``serve_config`` of ``cfg`` on ``shape`` (None: this device), its
+    prefill routed by ``routes``: the checks read the prefill, and decode
+    follows tokens that may differ once the first does."""
     from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
     from repro_torch.launch.serve import serve_config
 
     _reset_peak(torch, dev)
     runtime.reset_launches()
-    r = serve_config(cfg, batch=a.serve_batch, prompt_len=a.prompt_len,
-                     gen_tokens=a.gen_tokens, movement="daemon", mesh_shape=shape, seed=SEED,
-                     device=dev, return_logits=True)
+    batch, prompt = serve_shape(cfg, a)
+    make_prefill = steps.make_prefill_step
+
+    def routed_prefill(cfg_):
+        prefill = make_prefill(cfg_)
+
+        def step(*args):
+            with routes:
+                return prefill(*args)
+
+        return step
+
+    steps.make_prefill_step = routed_prefill
+    try:
+        r = serve_config(cfg, batch=batch, prompt_len=prompt,
+                         gen_tokens=a.gen_tokens, movement="daemon", mesh_shape=shape,
+                         seed=SEED, device=dev, return_logits=True)
+    finally:
+        steps.make_prefill_step = make_prefill
     return {"logits": r["logits"], "tokens": r["tokens"].tolist(),
             "prefill_s": r["prefill_s"], "decode_s_per_token": r["decode_s_per_token"],
             "peak_memory_gb": _peak_gb(torch, dev),
@@ -205,9 +395,6 @@ def worker(rank: int, n: int, a, store: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
-
     # DTensor warns on every multi-dim redistribution; the checks speak for it
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
     cuda = a.device == "cuda"
@@ -235,85 +422,12 @@ def worker(rank: int, n: int, a, store: str, out_dir: str) -> None:
         return out
 
     try:
-        cfg = get_config(ARCH)
-        cfg = cfg.reduced() if a.reduced else cfg
-        meshes = parse_meshes(a.meshes)
-        if meshes:
-            ref = run_steps(torch, cfg, None, a, dev, a.ref_microbatches) if rank == 0 else None
-            ref = gather(ref)[0]
-            if cuda:
-                torch.cuda.empty_cache()
-        for shape in meshes:
-            got = run_steps(torch, cfg, make_mesh(shape, device=dev), a, dev, 1)
-            # the plain versions run on the CPU, and count no launch
-            want = {"block_quant.quantize": 18, "block_quant.dequantize": 18,
-                    "flash_attention.forward": 0} if cuda else dict.fromkeys(KERNELS[:3], 0)
-            mine = all(l == want for l in got["launches_per_step"])
-            mine = mine and got["state_bytes"] == got["state_bytes_even"]
-            everyone = gather({"ok": mine, "peak_memory_gb": got["peak_memory_gb"],
-                               "state_bytes": got["state_bytes"],
-                               "launches_per_step": got["launches_per_step"]})
-            rel = _rel(got["losses"], ref["losses"])
-            whole = sum(got["state_bytes_whole"].values())
-            emit("step", rel <= LOSS_RTOL and all(e["ok"] for e in everyone),
-                 mesh=list(shape), arch=cfg.name, batch=a.batch, seq=a.seq, steps=a.steps,
-                 movement="daemon (DAEMON_AGGRESSIVE)", losses=got["losses"],
-                 one_card_losses=ref["losses"], loss_max_rel=rel, loss_rtol=LOSS_RTOL,
-                 one_card_microbatches=a.ref_microbatches,
-                 step_s=got["step_s"], step_s_each=got["step_s_each"],
-                 one_card_step_s=ref["step_s"], peak_memory_gb_per_rank=[
-                     e["peak_memory_gb"] for e in everyone],
-                 one_card_peak_memory_gb=ref["peak_memory_gb"],
-                 state_bytes_per_rank=[sum(e["state_bytes"].values()) for e in everyone],
-                 state_bytes_even_split=sum(got["state_bytes_even"].values()),
-                 state_bytes_whole=whole, state_bytes_whole_by_part=got["state_bytes_whole"],
-                 state_share_per_rank=[sum(e["state_bytes"].values()) / whole for e in everyone],
-                 launches_per_step_rank0=got["launches_per_step"],
-                 launches_ok_per_rank=[e["ok"] for e in everyone])
-            if cuda:
-                torch.cuda.empty_cache()
-
+        cfg = train_config(ARCH, a)
+        train_archs = [x for x in a.train_archs.split(",") if x]
+        for arch in train_archs:
+            run_train_checks(torch, train_config(arch, a), a, dev, rank, cuda, gather, emit)
         for arch in [x for x in a.serve_archs.split(",") if x]:
-            scfg = get_config(arch)
-            scfg = scfg.reduced() if a.reduced else scfg
-            for shape in parse_meshes(a.serve_meshes):
-                ref = run_serve(torch, scfg, None, a, dev) if rank == 0 else None
-                ref = gather(ref)[0]
-                got = run_serve(torch, scfg, shape, a, dev)
-                everyone = gather({"peak_memory_gb": got["peak_memory_gb"],
-                                   "launches": got["launches"]})
-                err = float((got["logits"] - ref["logits"]).abs().max())
-                # the first token is the prefill logits' argmax: it must agree
-                # wherever one card's top two are further apart than the two
-                # runs' logits may be; later tokens follow the first
-                # difference, and random weights at full width leave near ties
-                top2 = ref["logits"].topk(2, dim=-1).values
-                clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
-                first = [g[0] == r[0] for g, r in zip(got["tokens"], ref["tokens"])]
-                first_ok = all(f or not c for f, c in zip(first, clear.tolist()))
-                want_k3 = scfg.num_layers if scfg.family == "dense" else 0
-                want_k4 = scfg.num_layers if scfg.family == "ssm" else 0
-                if not cuda:  # the plain versions count no launch
-                    want_k3 = want_k4 = 0
-                launched = all(e["launches"]["flash_attention.forward"] == want_k3 and
-                               e["launches"]["mamba_scan.forward"] == want_k4
-                               for e in everyone)
-                emit("serve", err <= LOGIT_TOL and launched and first_ok,
-                     mesh=list(shape), arch=scfg.name, batch=a.serve_batch,
-                     prompt_len=a.prompt_len, gen_tokens=a.gen_tokens,
-                     logits_max_abs_err=err, logit_tol=LOGIT_TOL,
-                     tokens_equal=got["tokens"] == ref["tokens"],
-                     first_token_equal=first, first_token_margin_clear=clear.tolist(),
-                     prefill_s=got["prefill_s"], one_card_prefill_s=ref["prefill_s"],
-                     decode_s_per_token=got["decode_s_per_token"],
-                     one_card_decode_s_per_token=ref["decode_s_per_token"],
-                     peak_memory_gb_per_rank=[e["peak_memory_gb"] for e in everyone],
-                     one_card_peak_memory_gb=ref["peak_memory_gb"],
-                     launches_per_rank=[e["launches"] for e in everyone],
-                     one_card_launches=ref["launches"])
-
-        if a.grads_meshes:
-            run_grads(torch, cfg, a, dev, rank, emit)
+            run_serve_checks(torch, arch, a, dev, rank, cuda, gather, emit)
         if a.driver_meshes:
             run_driver(torch, a, dev, rank, gather, emit)
         if a.fold_mesh:
@@ -327,6 +441,125 @@ def worker(rank: int, n: int, a, store: str, out_dir: str) -> None:
     finally:
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps({"ok": ok, "lines": len(lines)}))
         dist.destroy_process_group()
+
+
+def ref_microbatches(cfg, a) -> int:
+    """The one-card reference's microbatches: ``--ref-microbatches``, else 2
+    at full size on the card (B = 4 x 4096 does not fit one card whole), 1
+    for whisper-base's 16 x 1024 and on the CPU."""
+    if a.ref_microbatches is not None:
+        return a.ref_microbatches
+    full_card = a.device == "cuda" and not a.reduced
+    return 2 if full_card and cfg.family != "audio" else 1
+
+
+def run_train_checks(torch, cfg, a, dev, rank, cuda, gather, emit) -> None:
+    """The ``step`` checks of one arch on each mesh of ``--meshes``, then
+    its ``grads`` checks on each of ``--grads-meshes``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = parse_meshes(a.meshes)
+    k = ref_microbatches(cfg, a)
+    batch_size, seq = train_shape(cfg, a)
+    if meshes:
+        ref = None
+        if rank == 0:
+            routes = _routes(cfg)
+            ref = run_steps(torch, cfg, None, a, dev, k, routes)
+            ref["routes"] = getattr(routes, "recorded", None)
+        ref = gather(ref)[0]
+        if cuda:
+            torch.cuda.empty_cache()
+    # the plain versions run on the CPU, and count no launch
+    want = step_launches(cfg) if cuda else dict.fromkeys(KERNELS, 0)
+    for shape in meshes:
+        routes = _routes(cfg, ref["routes"])
+        got = run_steps(torch, cfg, make_mesh(shape, device=dev), a, dev, 1, routes)
+        mine = all(l == want for l in got["launches_per_step"])
+        mine = mine and got["state_bytes"] == got["state_bytes_even"]
+        mine = mine and getattr(routes, "ok", lambda: True)()
+        everyone = gather({"ok": mine, "peak_memory_gb": got["peak_memory_gb"],
+                           "state_bytes": got["state_bytes"],
+                           "launches_per_step": got["launches_per_step"],
+                           "routes": getattr(routes, "stats", dict)()})
+        rel = _rel(got["losses"], ref["losses"])
+        whole = sum(got["state_bytes_whole"].values())
+        emit("step", rel <= LOSS_RTOL and all(e["ok"] for e in everyone),
+             mesh=list(shape), arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size,
+             seq=seq, steps=a.steps, movement="daemon (DAEMON_AGGRESSIVE)",
+             losses=got["losses"], one_card_losses=ref["losses"], loss_max_rel=rel,
+             loss_rtol=LOSS_RTOL, one_card_microbatches=k,
+             step_s=got["step_s"], step_s_each=got["step_s_each"],
+             one_card_step_s=ref["step_s"], peak_memory_gb_per_rank=[
+                 e["peak_memory_gb"] for e in everyone],
+             one_card_peak_memory_gb=ref["peak_memory_gb"],
+             state_bytes_per_rank=[sum(e["state_bytes"].values()) for e in everyone],
+             state_bytes_even_split=sum(got["state_bytes_even"].values()),
+             state_bytes_whole=whole, state_bytes_whole_by_part=got["state_bytes_whole"],
+             state_share_per_rank=[sum(e["state_bytes"].values()) / whole for e in everyone],
+             launches_want=want, launches_per_step_rank0=got["launches_per_step"],
+             launches_ok_per_rank=[e["ok"] for e in everyone],
+             routes_as_one_card_per_rank=[e["routes"] for e in everyone])
+        if cuda:
+            torch.cuda.empty_cache()
+    if a.grads_meshes:
+        run_grads(torch, cfg, a, dev, rank, gather, emit, k)
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def run_serve_checks(torch, arch, a, dev, rank, cuda, gather, emit) -> None:
+    """The ``serve`` checks of one arch, at full width and depth (or
+    reduced), on each mesh of ``--serve-meshes`` against one card."""
+    from repro_torch.configs import get_config
+
+    scfg = get_config(arch)
+    scfg = scfg.reduced() if a.reduced else scfg
+    meshes = parse_meshes(a.serve_meshes)
+    if not meshes:
+        return
+    batch, prompt = serve_shape(scfg, a)
+    ref = None
+    if rank == 0:
+        routes = _routes(scfg)
+        ref = run_serve(torch, scfg, None, a, dev, routes)
+        ref["routes"] = getattr(routes, "recorded", None)
+    ref = gather(ref)[0]
+    # the plain versions count no launch
+    want = prefill_launches(scfg) if cuda else {KERNELS[2]: 0, KERNELS[3]: 0}
+    for shape in meshes:
+        if cuda:
+            torch.cuda.empty_cache()
+        routes = _routes(scfg, ref["routes"])
+        got = run_serve(torch, scfg, shape, a, dev, routes)
+        everyone = gather({"peak_memory_gb": got["peak_memory_gb"],
+                           "launches": got["launches"],
+                           "routes": getattr(routes, "stats", dict)(),
+                           "routes_ok": getattr(routes, "ok", lambda: True)()})
+        err = float((got["logits"] - ref["logits"]).abs().max())
+        # the first token is the prefill logits' argmax: it must agree
+        # wherever one card's top two are further apart than the two
+        # runs' logits may be; later tokens follow the first
+        # difference, and random weights at full width leave near ties
+        top2 = ref["logits"].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        first = [g[0] == r[0] for g, r in zip(got["tokens"], ref["tokens"])]
+        first_ok = all(f or not c for f, c in zip(first, clear.tolist()))
+        launched = all(e["launches"][kk] == n for e in everyone for kk, n in want.items())
+        routed = all(e["routes_ok"] for e in everyone)
+        emit("serve", err <= LOGIT_TOL and launched and first_ok and routed,
+             mesh=list(shape), arch=scfg.name, batch=batch, prompt_len=prompt,
+             gen_tokens=a.gen_tokens, logits_max_abs_err=err, logit_tol=LOGIT_TOL,
+             tokens_equal=got["tokens"] == ref["tokens"],
+             first_token_equal=first, first_token_margin_clear=clear.tolist(),
+             prefill_s=got["prefill_s"], one_card_prefill_s=ref["prefill_s"],
+             decode_s_per_token=got["decode_s_per_token"],
+             one_card_decode_s_per_token=ref["decode_s_per_token"],
+             peak_memory_gb_per_rank=[e["peak_memory_gb"] for e in everyone],
+             one_card_peak_memory_gb=ref["peak_memory_gb"], launches_want=want,
+             launches_per_rank=[e["launches"] for e in everyone],
+             one_card_launches=ref["launches"],
+             routes_as_one_card_per_rank=[e["routes"] for e in everyone])
 
 
 def _train(arch, shape, a, dev, **kw):
@@ -352,7 +585,9 @@ def run_driver(torch, a, dev, rank, gather, emit) -> None:
              one_device_losses=ref, loss_max_rel=rel, init="npz" if init else "seed")
 
 
-def run_grads(torch, cfg, a, dev, rank, emit) -> None:
+def run_grads(torch, cfg, a, dev, rank, gather, emit, microbatches: int = 1) -> None:
+    """The ``grads`` checks of ``cfg`` (rank 0's reference over
+    ``microbatches`` of the batch, as its step's)."""
     from repro_torch.core import movement as mv
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch import steps
@@ -365,15 +600,20 @@ def run_grads(torch, cfg, a, dev, rank, emit) -> None:
     params = mv.working_copy(
         nn.init_params(specs, torch.Generator(device=dev).manual_seed(SEED), dev),
         mv.DAEMON_DEFAULT)
-    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=a.seq,
-                                    global_batch=a.batch, seed=SEED))
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
+    batch_size, seq = train_shape(cfg, a)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch_size, seed=SEED))
+    batch = _batch(torch, cfg, next(pipe), dev)
     pipe.close()
     want = None
     if rank == 0:
-        g, m = steps._value_and_grad(cfg, params, batch)
-        want = ([x.float().cpu() for x in nn.tree_leaves(g)], float(m["loss"]))
+        routes = _routes(cfg)
+        with routes:
+            g, m = steps._microbatched_grads(cfg, params, batch, microbatches)
+        want = ([x.float().cpu() for x in nn.tree_leaves(g)], float(m["loss"]),
+                getattr(routes, "recorded", None))
         del g
+    want = gather(want)[0]
     for shape in parse_meshes(a.grads_meshes):
         mesh = make_mesh(shape, device=dev)
         rules = shd.base_rules(mesh, fsdp=True)
@@ -381,20 +621,25 @@ def run_grads(torch, cfg, a, dev, rank, emit) -> None:
         try:
             dp = shd.place_tree(params, shd.sharding_for_specs(mesh, rules, specs))
             db = shd.place_tree(batch, shd.batch_sharding(mesh, rules, batch))
-            g, m = steps._value_and_grad(cfg, dp, db)
+            routes = _routes(cfg, want[2])
+            with routes:
+                g, m = steps._value_and_grad(cfg, dp, db)
             got = [shd.to_global(x).float().cpu() for x in nn.tree_leaves(g)]
             del g, dp
         finally:
             shd.deactivate()
+        stats = gather((getattr(routes, "stats", dict)(), getattr(routes, "ok", lambda: True)()))
         if rank == 0:
             rel = {path: float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
                    for path, x, y in zip(_paths(specs), got, want[0])}
             worst = max(rel, key=rel.get)
-            emit("grads", rel[worst] <= GRAD_TOL, mesh=list(shape), loss=float(m["loss"]),
-                 one_device_loss=want[1], worst_leaf=worst, worst_rel=rel[worst],
-                 grad_tol=GRAD_TOL, rel_by_leaf=rel)
+            emit("grads", rel[worst] <= GRAD_TOL and all(o for _, o in stats),
+                 mesh=list(shape), model=cfg.name, loss=float(m["loss"]),
+                 one_device_loss=want[1], one_device_microbatches=microbatches,
+                 worst_leaf=worst, worst_rel=rel[worst], grad_tol=GRAD_TOL, rel_by_leaf=rel,
+                 routes_as_one_card_per_rank=[st for st, _ in stats])
         else:
-            emit("grads", True, mesh=list(shape))
+            emit("grads", True, mesh=list(shape), model=cfg.name)
 
 
 def run_fold(torch, cfg, shape, dev, gather, emit) -> None:
@@ -479,6 +724,8 @@ def main() -> int:
     ap.add_argument("--meshes", default="4x1,2x2,1x4", help="DaeMon-step meshes, data x model")
     ap.add_argument("--serve-meshes", default="1x4")
     ap.add_argument("--serve-archs", default=ARCH)
+    ap.add_argument("--train-archs", default=ARCH,
+                    help="archs of the step and grads checks (comma list)")
     ap.add_argument("--driver-meshes", default="", help="train() entry-point meshes")
     ap.add_argument("--init-npz", default="", help="initial master for --driver-meshes")
     ap.add_argument("--grads-meshes", default="4x1,2x2,1x4")
@@ -489,14 +736,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=None, help="default 4 (x 4096; reduced x 32)")
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--ref-microbatches", type=int, default=None,
-                    help="the one-card step's microbatches (default 2 on the card at full size)")
+                    help="the one-card step's microbatches (default 2 on the card at full "
+                         "size, whisper-base 1)")
     ap.add_argument("--timeout", type=float, default=1200.0, help="seconds for every rank")
     a = ap.parse_args()
     a.batch = a.batch or 4
     a.seq = a.seq or (32 if a.reduced else 4096)
-    full_card = a.device == "cuda" and not a.reduced
-    if a.ref_microbatches is None:
-        a.ref_microbatches = 2 if full_card else 1
     a.serve_batch, a.prompt_len, a.gen_tokens = (2, 8192, 16) if not a.reduced else (2, 32, 4)
     if a.resume and not a.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
