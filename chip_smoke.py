@@ -26,6 +26,15 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               card's occupancy query, and the trace's counts (accesses,
               bytes moved by operand, footprint, compressibility, compute
               and byte time) beside the launch's CUDA-event time;
+ 4b. sim      the port's DaeMon simulator (repro_torch.core.sim) on this
+              machine's host, no card: fig8_kernels() over the four Hopper
+              streams the capture phase just cached (48 cells, one line a
+              stream: daemon's geomean over page, each scheme's speedup and
+              net_bytes_ratio), fig9's llm tenant at one load with 8
+              requests, paper_claims(n_accesses=20000, workers=1) within
+              1e-6 of the floats the CPU tests pin, and 16 fig8 cells under
+              the python and the batch engine, every Metrics field equal;
+              its wall seconds printed;
   5. serve    serve("h2o-danube-1.8b", reduced=False, batch=2, prompt_len=8192,
               gen_tokens=16): the flash kernel must launch once per layer;
   6. int8     the page-class int8 working copy of the same master (K1 and K2
@@ -1037,6 +1046,91 @@ def run_capture(torch):
              trace_bytes=moved, trace_bytes_ms=moved / HBM_BYTES_PER_S * 1e3,
              ms=time_ms(torch, fn))
         free_memory(torch)
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the port's simulator on the capture phase's Hopper streams
+# --------------------------------------------------------------------------
+
+# paper_claims(n_accesses=20000, workers=1) on the CPU, where
+# tests/test_torch_sim.py holds the port to the JAX package exactly; this
+# machine's numpy or libm may differ in the last bits
+PAPER_CLAIMS = {"perf_speedup_geomean": 2.6246578959820193,
+                "access_cost_reduction_geomean": 2.572550262016999}
+PAPER_CLAIMS_RTOL = 1e-6
+
+
+def run_sim():
+    """The port's DaeMon simulator: host code (numpy and Python), no card.
+    fig8's grid replays the traces the capture phase cached, over a process
+    pool of ``default_workers()`` forked workers, which inherit that cache;
+    the engines' comparison runs 16 fig8 cells (every stream and scheme at
+    link_bw_frac 0.125, 20000 accesses a cell) under both engines."""
+    from repro_torch.capture import workloads as captured
+    from repro_torch.core import sim
+    from repro_torch.core.sim import runner
+
+    t0 = time.perf_counter()
+    streams = runner.KERNEL_WORKLOADS
+    cached = {name: captured._RESULTS.get(name) for name in streams}
+    require(all(cached.values()), f"sim: the capture phase cached no trace of "
+            f"{sorted(n for n, r in cached.items() if r is None)}")
+    workers = sim.default_workers()
+
+    rows = sim.fig8_kernels(workers=workers)
+    cells = len(streams) * len(runner.KERNEL_SCHEMES) * len(runner.KERNEL_BW_FRACS)
+    for w in streams:
+        mine = [r for r in rows if r["workload"] == w]
+        geo = [r for r in mine if r["bw_frac"] == "geomean"]
+        cell_rows = [r for r in mine if r["bw_frac"] != "geomean"]
+        require(len(geo) == 1 and len(cell_rows) == len(runner.KERNEL_BW_FRACS)
+                * (len(runner.KERNEL_SCHEMES) - 1), f"sim: fig8 misses a cell of {w}")
+        values = [geo[0]["speedup_vs_page"]] + [r[k] for r in cell_rows
+                                                for k in ("speedup_vs_page", "net_bytes_ratio")]
+        require(all(math.isfinite(v) and v > 0 for v in values),
+                f"sim: fig8 on {w} has a non-finite or non-positive ratio: {mine}")
+        by_scheme = {}
+        for r in cell_rows:
+            by_scheme.setdefault(r["scheme"], {})[str(r["bw_frac"])] = (
+                r["speedup_vs_page"], r["net_bytes_ratio"])
+        emit("sim", part="fig8_kernels", stream=w, n_accesses=sim.fig8_kernels_spec().n_accesses,
+             daemon_geomean_vs_page=geo[0]["speedup_vs_page"],
+             speedup_vs_page={s: {bw: v[0] for bw, v in d.items()} for s, d in by_scheme.items()},
+             net_bytes_ratio={s: {bw: v[1] for bw, v in d.items()} for s, d in by_scheme.items()})
+    require(all(captured._RESULTS.get(n) is r for n, r in cached.items()),
+            "sim: fig8 captured a stream again instead of reusing the capture phase's")
+
+    spec = sim.fig8_kernels_spec(bw_fracs=(0.125,), n_accesses=20_000)
+    by_engine = {eng: sim.run_sweep(spec, workers=workers, engine=eng).rows
+                 for eng in sim.ENGINES}
+    python, batch = by_engine["python"], by_engine["batch"]
+    require(len(python) == len(batch) == len(spec.cells()) == 16,
+            f"sim: the engines ran {len(python)} and {len(batch)} of 16 cells")
+    for a, b in zip(python, batch):
+        require(math.isfinite(a.metrics.cycles) and a.metrics.cycles > 0,
+                f"sim: cycles {a.metrics.cycles} at {a.axes}")
+        require(a.axes == b.axes and repr(dataclasses.asdict(a.metrics))
+                == repr(dataclasses.asdict(b.metrics)),
+                f"sim: the python and batch engines disagree at {a.axes}")
+
+    serving = sim.fig9_serving(loads=(16.0,), tenants=("llm",), n_requests=8, workers=workers)
+    for r in serving:
+        require(all(math.isfinite(v) for k, v in r.items() if isinstance(v, float)),
+                f"sim: fig9 row not finite: {r}")
+        require(r["router"] == "geomean" or r["completed"] == (8, 8),
+                f"sim: fig9 left requests unserved: {r}")
+    emit("sim", part="fig9_serving", tenant="llm", streams=list(runner.SERVING_TENANTS["llm"]),
+         offered_load=16.0, n_requests=8, rows=serving)
+
+    claims = sim.paper_claims(n_accesses=20_000, workers=1)
+    for key, want in PAPER_CLAIMS.items():
+        require(abs(claims[key] - want) <= PAPER_CLAIMS_RTOL * want,
+                f"sim: paper_claims {key} = {claims[key]!r}, not within "
+                f"{PAPER_CLAIMS_RTOL} of {want!r}")
+    emit("sim", device="none: host code (numpy, Python), no card", workers=workers,
+         fig8_cells=cells, engines_equal_cells=len(python),
+         paper_claims={k: claims[k] for k in PAPER_CLAIMS}, paper_claims_expected=PAPER_CLAIMS,
+         rtol=PAPER_CLAIMS_RTOL, wall_s=time.perf_counter() - t0)
 
 
 # --------------------------------------------------------------------------
@@ -2505,6 +2599,7 @@ def main() -> int:
     k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
     run_capture(torch)
+    run_sim()
 
     per_phase = {"serve": run_serve(torch, runtime, "serve", cfg,
                                     {"flash_attention.forward": cfg.num_layers})}

@@ -4,12 +4,15 @@ The port's kernels K1, K3 and K4 describe their own launches (a
 ``trace_geometry`` shim in each kernel's ``ops.py``, read off its ``.cu``
 source) and the recorder turns a launch into the ``(gaps, addrs, writes)``
 stream the DaeMon simulator replays, with compute gaps from the H100's
-peaks.  The simulator belongs to the JAX package; a trace reaches it as a
-standard ``.npz`` file:
+peaks.  The port's simulator (``repro_torch.core.sim``) registers the
+catalog as workloads at import, and a trace also leaves as a standard
+``.npz`` file:
 
     from repro_torch.capture import save_kernel_trace
+    from repro_torch.core.sim import register_trace_file, run_one
+    run_one("fa_prefill_h100", "daemon")
     save_kernel_trace("fa_prefill_h100", "fa_prefill_h100.npz")
-    # then, with the JAX package: repro.core.sim.register_trace_file(path)
+    run_one(register_trace_file("fa_prefill_h100.npz").name, "daemon")
 
 Layers: geometry (the Pallas and the Hopper launch descriptions, operand
 regions) -> recorder (the TPU grid walk, and the Hopper CTA-scheduler walk)
@@ -33,6 +36,7 @@ from repro_torch.capture.workloads import (
     capture_meta,
     clear_capture_cache,
     measured_compressibility_of,
+    register_captured_kernels,
     save_kernel_trace,
 )
 
@@ -42,5 +46,5 @@ __all__ = [
     "CaptureResult", "KernelTraceRecorder", "CtaTraceRecorder",
     "measure_ratio", "measured_compressibility",
     "CAPTURED", "CapturedKernel", "capture", "capture_meta", "clear_capture_cache",
-    "measured_compressibility_of", "save_kernel_trace",
+    "measured_compressibility_of", "register_captured_kernels", "save_kernel_trace",
 ]

@@ -11,18 +11,18 @@ launch can be set side by side:
   mamba_fwd_h100   K4, B 1, S 1024, D 512, N 16, x in bf16
   bq_quant_h100    K1, a 512 x 2048 f32 tensor
 
-The simulator belongs to the JAX package; the port hands it a trace as a
-standard ``.npz`` file (:func:`save_kernel_trace`), which
-``repro.core.sim.register_trace_file`` reads.  Kernel modules are imported
-at the first capture, and a capture builds and loads no CUDA library.
+:func:`register_captured_kernels` registers the four as workloads of the
+port's simulator (``repro_torch.core.sim`` calls it at import), and
+:func:`save_kernel_trace` writes one as the simulator's standard ``.npz``
+replay file, which ``register_trace_file`` of either package reads.  Kernel
+modules are imported at the first capture, the first time a trace is drawn,
+and a capture builds and loads no CUDA library.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Dict
-
-import numpy as np
+from typing import Dict, Tuple
 
 from repro_torch.capture.compress import measured_compressibility
 from repro_torch.capture.recorder import CaptureResult, CtaTraceRecorder
@@ -108,11 +108,35 @@ def capture_meta(name: str) -> Dict[str, object]:
 
 
 def save_kernel_trace(name: str, path: str) -> CaptureResult:
-    """Write one captured trace as the simulator's ``.npz`` replay file: the
-    keys and dtypes of ``repro.core.sim.trace.save_trace`` (int64 gaps and
-    addrs, bool writes, f64 compressibility)."""
+    """Write one captured trace through the simulator's ``save_trace``: the
+    ``.npz`` file replays as the registered workload does."""
+    from repro_torch.core.sim.trace import save_trace
+
     res = capture(name)
-    np.savez(path, gaps=np.asarray(res.gaps, np.int64), addrs=np.asarray(res.addrs, np.int64),
-             writes=np.asarray(res.writes, bool),
-             compressibility=np.float64(measured_compressibility_of(name)))
+    save_trace(path, res.trace, compressibility=measured_compressibility_of(name))
     return res
+
+
+def register_captured_kernels(overwrite: bool = False) -> Tuple[str, ...]:
+    """Register every catalog entry as a workload of ``repro_torch.core.sim``
+    (its ``__init__`` calls this).  Cheap: the capture, the compressibility
+    measurement and the kernel module's import wait for the first trace
+    drawn, and are cached per process."""
+    from repro_torch.core.sim.trace import WORKLOADS, WorkloadSpec, _register, replay_slice
+
+    for name, entry in CAPTURED.items():
+        if name in WORKLOADS and not overwrite:
+            continue
+
+        def generator(seed: int, footprint: int, n: int, _name: str = name):
+            return replay_slice(capture(_name).trace, seed, n)
+
+        def compressibility(_name: str = name, _cache: list = []) -> float:
+            if not _cache:
+                _cache.append(measured_compressibility_of(_name))
+            return _cache[0]
+
+        _register(WorkloadSpec(name=name, generator=generator,
+                               compressibility=compressibility,
+                               description=entry.description), overwrite=overwrite)
+    return tuple(CAPTURED)

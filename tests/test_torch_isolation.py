@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks")
 
 def _port_files():
     twins = sorted((ROOT / "examples").glob("*_torch.py"))
-    assert len(twins) == 2, twins
+    assert len(twins) == 4, twins
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + twins
 
 
@@ -43,7 +43,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         m.name for m in pkgutil.walk_packages([str(PORT)], prefix="repro_torch.")
     ]
     for m in ("repro_torch.launch.serve", "repro_torch.models.mamba",
-              "repro_torch.kernels.mamba_scan.kernel", "repro_torch.kernels.mamba_scan.ref"):
+              "repro_torch.kernels.mamba_scan.kernel", "repro_torch.kernels.mamba_scan.ref",
+              "repro_torch.core.sim.engine_batch"):
         assert m in modules, m
     assert len(modules) > 30
     code = (
