@@ -14,9 +14,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               with the HGMMA count of its tensor-core kernels' SASS and
               scaled_dot_product_attention's time beside it, K4 mamba_scan
               with no spills and its shares of the bound and of the SFU's
-              exp floor); K3 also at whisper's three serving shapes and
-              internvl2's (head_dim 128; its ptxas registers and spill
-              recorded); K1/K2 also at deepseek-v2-lite's 15 page-class
+              exp floor); K3 also at whisper's three serving shapes,
+              internvl2's (head_dim 128) and the prefill of qwen3-14b (40/8
+              heads of 128), stablelm-12b (32/8 of 160) and minicpm-2b
+              (36/36 of 64), B = 2 at 8192 tokens, each timed beside its
+              bound and the SDPA backend PyTorch picks, named (the ptxas
+              registers and spill of head_dim 64, 128 and 160 recorded);
+              K1/K2 also at deepseek-v2-lite's 15 page-class
               shapes at full depth, three of them 4.80e9-element expert
               stacks held on row slices across element 2^31;
   4. capture  for each Hopper launch in repro_torch.capture's catalog (K3's
@@ -77,6 +81,14 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               an 8192-token prompt, 16 tokens: the flash kernel once a layer
               (head_dim 128), the peak under 75 GB;
  17. profile_vlm as 15, for that internvl2;
+ 17b. serve_qwen3, serve_stablelm, serve_minicpm  serve_config for
+              qwen3-14b (q/k RMSNorm before K3 at head_dim 128),
+              stablelm-12b (head_dim 160) and minicpm-2b (MHA, the tied
+              head) at full width and depth, batch 2, 8192-token prompts, 16
+              tokens: K3 once a layer (40), K1, K2 and K4 never;
+              profile_stablelm then a second stablelm prefill and 4 decode
+              steps under torch.profiler: K3's share of prefill device
+              time, decode's idle share;
  18. train_step the DaeMon training step of h2o-danube-1.8b at full width and
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
@@ -106,6 +118,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               step (23 + 15), the first batch's cross-entropy lowered;
  23. train_audio the same for whisper-base at full width and depth, batch 16
               x 1024 with zero frames: K1 = K2 = 42 a step (24 + 18);
+ 23a. train_tied the same for minicpm-2b at full width, cut to its first
+              36 of 40 layers (38 do not fit the card), where embed is both
+              the lookup and the head: K1 = K2 = its page-class weights plus
+              its fold-only gradients a step, both counted from its specs
+              (7 + 3: no lm_head leaf);
  23b. sharded (families) the sharded phase's (1, 1) mesh for more families
               at full width: falcon-mamba-7b's serving (K4 64 times, on the
               rank's local channels) and zamba2-1.2b's (K3 7 times, on its
@@ -129,12 +146,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               DAEMON_DEFAULT and so launches no kernel;
  27. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
- 28. reference the reduced models (danube, qwen3, falcon-mamba, zamba2,
-              deepseek, dbrx, whisper, internvl2) on the card against the
-              plain path on the CPU, and 3 DAEMON_AGGRESSIVE train steps each
-              of reduced danube, zamba2, falcon-mamba, deepseek, whisper and
-              internvl2 from the same state and batches; the MoE routed on
-              the card as on the CPU;
+ 28. reference the reduced models (danube, qwen3, stablelm, minicpm,
+              falcon-mamba, zamba2, deepseek, dbrx, whisper, internvl2) on
+              the card against the plain path on the CPU, and 3
+              DAEMON_AGGRESSIVE train steps each of reduced danube, zamba2,
+              falcon-mamba, deepseek, whisper and internvl2 from the same
+              state and batches; the MoE routed on the card as on the CPU;
  29. dryrun   launch/dryrun.py on the card (--device cuda), each cell in a
               child process with a time limit, all started together: danube
               train_4k (daemon) and prefill_32k, falcon-mamba prefill_32k,
@@ -153,7 +170,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 Every phase line carries t_s, the seconds since the script started.  Then a
 {"kernels": [...]} line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Launch counts are reset to 0 just before each
-main-path phase (5-24, 26; 23b) and read just after (29-30 read their
+main-path phase (5-24, 26; 17b, 23a, 23b) and read just after (29-30 read their
 children's); launches made to compare a
 kernel with its plain version are not counted.  Needs one card; without CUDA, or
 without the rest of the repository beside it, it fails.
@@ -204,6 +221,9 @@ SSM_TRAIN_LAYERS = 8  # falcon's training phase: its first 8 of 64 layers
 MOE_TRAIN_LAYERS = 4
 AUDIO_ARCH = "whisper-base"
 VLM_ARCH = "internvl2-76b"
+# served at full width and depth: qwen3's per-head q/k RMSNorm feeding K3 at
+# D = 128, stablelm's K3 at D = 160, minicpm's MHA and tied head (D = 64)
+QWEN_ARCH, STABLELM_ARCH, TIED_ARCH = "qwen3-14b", "stablelm-12b", "minicpm-2b"
 # whisper: B = 16 at 1500 frames, its encoder's 30-second window; the
 # decoder's prompt is as long (JAX's serve ties frames to the prompt), and
 # training takes 1024 (nn.attention's chunk divides it)
@@ -216,6 +236,12 @@ AUDIO_BATCH, AUDIO_PROMPT, AUDIO_TRAIN_SEQ = 16, 1500, 1024
 # and the FFN's (2, 8448, 28672) activations)
 VLM_SERVE_LAYERS = 27
 VLM_PEAK_GB = 75.0
+# minicpm-2b's training phase: its first 36 of 40 layers, the deepest that
+# fits.  Its state is 18 bytes a parameter (~1.10 GB a layer) and the step's
+# gradients and activations ~0.4 GB a layer more: 36 layers peak at 74.22 GB
+# on an H100 80GB, and 38 and 40 run out of memory in the first step
+# (tools/tied_depth.py)
+TIED_TRAIN_LAYERS = 36
 BATCH, PROMPT, GEN = 2, 8192, 16
 TRAIN_SEQ = 4096  # batch 2 x 4096: 8192 tokens a step, as the serving prompt
 TRAIN_STEPS = 4  # timed, then one more under the profiler
@@ -696,11 +722,14 @@ def check_flash_attention(torch, cfg):
     """K3 against the plain version on the same inputs, over ATTN_CASES, the
     reduced danube's head_dim 16 and the serving shapes of danube, zamba2,
     whisper (its encoder and cross-attention non-causal, its decoder causal,
-    B = 16 at 1500 frames) and internvl2 (256 patches + 8192 tokens, heads of
-    128), each also timed beside its bound and one SDPA call: f32 (CUDA
+    B = 16 at 1500 frames), internvl2 (256 patches + 8192 tokens, heads of
+    128), qwen3-14b, stablelm-12b (heads of 160) and minicpm-2b (B = 2 at 8192
+    tokens, causal), each also timed beside its bound and one SDPA call
+    (its backend named): f32 (CUDA
     cores) at |err| <= 2e-5 + 2e-5|ref|, bf16 (tensor cores) at |err| <=
     1e-5 + 1e-2|ref|, one bf16 ulp."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
@@ -723,9 +752,10 @@ def check_flash_attention(torch, cfg):
             f"K3: tensor-core instances without HGMMA: {tc}")
     ptxas = ptxas_per_kernel(lib.with_suffix(".log").read_text())
     emit("kernels.flash_attention", hgmma_per_kernel=hgmma, ptxas_per_kernel=ptxas)
-    # the head dims of this path's serving shapes: whisper's 64 and
-    # internvl2's 128 (whose spill is recorded, not refused: Queue 2 work)
-    wgmma_ptxas = {d: ptxas[f"flash_forward_wgmma_kernel<{d}>"] for d in (64, 128)}
+    # the head dims of this path's serving shapes: whisper's and minicpm's
+    # 64, internvl2's and qwen3's 128 and stablelm's 160 (their spills are
+    # recorded, not refused: Queue 2 work)
+    wgmma_ptxas = {d: ptxas[f"flash_forward_wgmma_kernel<{d}>"] for d in (64, 128, 160)}
     emit("kernels.flash_attention", ptxas_wgmma_by_head_dim=wgmma_ptxas)
 
     worst_f32 = worst_bf16 = 0.0
@@ -776,6 +806,12 @@ def check_flash_attention(torch, cfg):
                  f"{audio.name} cross", False),
                 ((BATCH, vlm.num_prefix_tokens + PROMPT, vlm.num_prefix_tokens + PROMPT,
                   vlm.num_heads, vlm.num_kv_heads, vlm.head_dim, True, 0), vlm.name, False)]
+    # the prefill of qwen3-14b (40/8 heads of 128), stablelm-12b (32/8 of 160)
+    # and minicpm-2b (36/36 of 64): full causal, no window
+    for arch_cfg in map(get_config, (QWEN_ARCH, STABLELM_ARCH, TIED_ARCH)):
+        serving.append(((BATCH, PROMPT, PROMPT, arch_cfg.num_heads, arch_cfg.num_kv_heads,
+                         arch_cfg.head_dim, True, 0), arch_cfg.name, False))
+    backends = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
     summary, others = None, []
     for shape, arch, must_beat_library in serving:
         b, sq, skv, h, kvh, d, causal, window = shape
@@ -821,6 +857,10 @@ def check_flash_attention(torch, cfg):
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
 
+        # the backend SDPA picks for these inputs (named, not forced)
+        library_backend = backends.get(int(torch._fused_sdp_choice(qt, kt, vt, **lib_kw)),
+                                       "unknown")
+
         def k3():
             return kernel.forward(q, k, v, causal=causal, window=window)
 
@@ -839,7 +879,7 @@ def check_flash_attention(torch, cfg):
              max_abs_err=err, excess_over_tol=excess,
              mean_abs_ref=float(expect.float().abs().mean()), rel_l1_err=rel_l1,
              tol=f"|err| <= {atol} + {rtol}|ref|", ms=ms, ms_runs=[k3_a, k3_b],
-             plain_ms=plain_ms, library=library,
+             plain_ms=plain_ms, library=library, library_backend=library_backend,
              library_ms=library_ms, library_ms_runs=[lib_a, lib_b], library_max_abs_err=lib_err,
              flop=flops, bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
              share_of_bound=bound_ms / ms, achieved_tflop_per_s=flops / ms / 1e9)
@@ -847,7 +887,8 @@ def check_flash_attention(torch, cfg):
             require(ms < library_ms, f"K3 bf16 at {arch}'s serving shape: {ms} ms, not faster "
                                      f"than scaled_dot_product_attention's {library_ms} ms")
         timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+                 "library_ms": library_ms, "library_backend": library_backend,
+                 "share_of_bound": bound_ms / ms,
                  "achieved_tflop_per_s": flops / ms / 1e9, "shape": list(shape)}
         if summary is None:
             summary = timed
@@ -2289,8 +2330,8 @@ def run_reference(torch):
 
     tol = 8e-2  # bf16 compute on both sides, rounded at different places
     worst, routing = {}, {}
-    for arch in (ARCH, "qwen3-14b", SSM_ARCH, HYBRID_ARCH, MOE_ARCH, "dbrx-132b", AUDIO_ARCH,
-                 VLM_ARCH):
+    for arch in (ARCH, QWEN_ARCH, STABLELM_ARCH, TIED_ARCH, SSM_ARCH, HYBRID_ARCH, MOE_ARCH,
+                 "dbrx-132b", AUDIO_ARCH, VLM_ARCH):
         cfg = get_config(arch).reduced()
         master = nn.init_params(M.model_specs(cfg), torch.Generator().manual_seed(SEED),
                                 torch.device("cpu"))
@@ -2592,6 +2633,7 @@ def main() -> int:
 
     cfg, ssm_cfg, hybrid_cfg = get_config(ARCH), get_config(SSM_ARCH), get_config(HYBRID_ARCH)
     moe_cfg, audio_cfg, vlm_cfg = get_config(MOE_ARCH), get_config(AUDIO_ARCH), get_config(VLM_ARCH)
+    qwen_cfg, stablelm_cfg, tied_cfg = map(get_config, (QWEN_ARCH, STABLELM_ARCH, TIED_ARCH))
     k1, k2 = check_block_quant(torch, cfg)
     bq_moe = check_block_quant_moe(torch, moe_cfg)
     k3 = check_flash_attention(torch, cfg)
@@ -2638,6 +2680,15 @@ def main() -> int:
     free_memory(torch)
     per_phase["profile_vlm"] = run_serving_profile(torch, runtime, "profile_vlm", vlm_cut, BATCH,
                                                    PROMPT)
+    # K3 once a layer, no other kernel: qwen3 (D = 128 after the q/k
+    # RMSNorm), stablelm (D = 160), minicpm (D = 64, MHA, the tied head)
+    for phase, arch_cfg in (("serve_qwen3", qwen_cfg), ("serve_stablelm", stablelm_cfg),
+                            ("serve_minicpm", tied_cfg)):
+        per_phase[phase] = run_serve(torch, runtime, phase, arch_cfg,
+                                     {**none, "flash_attention.forward": arch_cfg.num_layers})
+        free_memory(torch)
+    per_phase["profile_stablelm"] = run_serving_profile(torch, runtime, "profile_stablelm",
+                                                        stablelm_cfg, BATCH, PROMPT)
     per_phase["train_step"] = run_train_step(torch, runtime, cfg, "train_step", (11, 7))
     per_phase["sharded"] = run_sharded(torch, runtime, cfg)
     per_phase["train_hybrid"] = run_train_step(torch, runtime, hybrid_cfg, "train_hybrid", (16, 4))
@@ -2649,6 +2700,15 @@ def main() -> int:
         (23, 15))
     per_phase["train_audio"] = run_train_step(torch, runtime, audio_cfg, "train_audio", (24, 18),
                                               batch_size=AUDIO_BATCH, seq=AUDIO_TRAIN_SEQ)
+    # minicpm: embed is the lookup and the head, so its one gradient sums both
+    # uses before the fold; no lm_head leaf, so one fold-only leaf fewer
+    tied_cut = dataclasses.replace(tied_cfg, num_layers=TIED_TRAIN_LAYERS)
+    pages, fold_only = page_class_shapes(tied_cut), fold_only_shapes(tied_cut)
+    emit("train_tied", arch=tied_cfg.name, layers=f"{TIED_TRAIN_LAYERS} of {tied_cfg.num_layers}",
+         page_class_shapes=pages, fold_only_shapes=fold_only,
+         moves=[len(pages) + len(fold_only), len(pages)])
+    per_phase["train_tied"] = run_train_step(torch, runtime, tied_cut, "train_tied",
+                                             (len(pages) + len(fold_only), len(pages)))
     per_phase["sharded_families"] = run_sharded_families(torch, runtime, ssm_cfg, hybrid_cfg,
                                                          audio_cfg)
     per_phase["collectives"] = run_collectives(torch, runtime, cfg)
@@ -2714,7 +2774,8 @@ def main() -> int:
          "hgmma_instructions": k3["hgmma_instructions"],
          "other_shapes": k3["other_shapes"], "wgmma_ptxas": k3["wgmma_ptxas"],
          "per": f"one launch (one layer) at {k3['shape']}, bf16 (wgmma + TMA); other_shapes: "
-                "zamba2's, whisper's (encoder, decoder, cross) and internvl2's serving "
+                "zamba2's, whisper's (encoder, decoder, cross), internvl2's, qwen3's, "
+                "stablelm's and minicpm's serving "
                 "shapes, one launch each"},
         {"name": "mamba_scan.forward (K4)", "route": "cuda",
          "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",

@@ -3,8 +3,9 @@
 Plain Python, numpy and the standard library, as the original: the same
 float expressions, event order and seeds, so every ``Metrics`` equals the
 original's field for field wherever both replay the same trace.  The
-simulator is host code and takes no device.  The only departures are the
-kernel-stream seams, the Pallas captures swapped for the Hopper ones:
+simulator is host code and takes no device.  The departures are the four
+kernel-stream seams, the Pallas captures swapped for the Hopper ones, and
+one repair:
 
   (a) this module registers ``repro_torch.capture``'s catalog
       (``fa_prefill_h100``, ``fa_decode_h100``, ``mamba_fwd_h100``,
@@ -14,11 +15,17 @@ kernel-stream seams, the Pallas captures swapped for the Hopper ones:
   (c) ``SimConfig.prefill_workload`` / ``decode_workload`` default to
       ``fa_prefill_h100`` / ``fa_decode_h100``;
   (d) ``controller.TUNED_THRESHOLDS`` holds no kernel-stream entries, so
-      the Hopper streams run the fixed constants under ``tuned``.
+      the Hopper streams run the fixed constants under ``tuned``;
+  (e) ``serving.ServingScheduler`` starts a queued phase no earlier than
+      the cycle it was queued at; the original can start it at the popping
+      core's own, earlier clock, so a decode phase may begin before its
+      prefill ended.  Serving cells where no queued phase would start early
+      stay equal to the original's.
 
 The tests the modules' docstrings cite hold the original;
 ``tests/test_torch_sim.py`` and ``tests/test_torch_sim_kernels.py`` hold
-this copy equal to it, seams apart.
+this copy equal to it, seams apart;
+``tests/test_torch_sim_serving_order.py`` holds (e).
 """
 from repro_torch.core.sim.config import SCHEMES, Metrics, SimConfig
 from repro_torch.core.sim.engine import LinkSchedule, Simulator, simulate

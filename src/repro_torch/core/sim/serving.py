@@ -44,6 +44,16 @@ as cross-MC spills and cold-resident evictions in ``mc_spills`` /
 ``mc_evictions`` — no serving-layer code is capacity-aware; the pressure
 flows through the same engine hooks the closed-loop model uses.
 
+Port departure (the fifth beside the four kernel-stream seams of
+:mod:`repro_torch.core.sim`): a queued phase keeps the cycle it became
+ready at, and a core that pops it starts it no earlier than that cycle.
+``repro.core.sim.serving`` queues ``(req, phase)`` alone and starts the
+phase at the popping core's own clock, which ``core_step`` may have left
+behind the event that queued it: under ``disagg_prefill`` a decode phase
+then begins before its prefill ended.  Where no queued phase would start
+early, the two give equal ``Metrics``
+(tests/test_torch_sim_serving_order.py).
+
 Everything is deterministic given (cfg, scheme, seed): serial runs,
 pooled sweep workers, and repeated processes produce bit-identical
 per-request completion cycles (locked by tests/test_serving.py).
@@ -357,7 +367,7 @@ class ServingScheduler:
         if self._idle[cc]:
             self._start(self._idle[cc].pop(), req, phase, t)
         else:
-            self._queues[cc].append((req, phase))
+            self._queues[cc].append((req, phase, t))
 
     def _start(self, core: Core, req: RequestSpec, phase: int, t: float):
         rec = self.records[req.rid]
@@ -375,8 +385,11 @@ class ServingScheduler:
     def _park(self, core: Core, t: float):
         q = self._queues[core.cc]
         if q:
-            req, phase = q.popleft()
-            self._start(core, req, phase, t)
+            # a core can report idle at its own clock, which may lie before
+            # the cycle the queued phase became ready (core_step runs a core
+            # ahead of the event clock): start no earlier than that cycle
+            req, phase, t_ready = q.popleft()
+            self._start(core, req, phase, max(t, t_ready))
             return
         lst = self._idle[core.cc]
         if core not in lst:

@@ -55,8 +55,9 @@ def _f32(x):
 
 
 # danube: SWA, window 16 < prompt 32, so prefill extracts a ring buffer and
-# decode wraps it; qwen3: full attention + qk_norm; minicpm: tied embeddings
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen3-14b", "minicpm-2b"])
+# decode wraps it; qwen3: full attention + qk_norm; minicpm: tied embeddings;
+# stablelm: GQA at 32/8 heads
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen3-14b", "minicpm-2b", "stablelm-12b"])
 def test_prefill_and_decode_match_jax(arch):
     cfg_j = jax_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
