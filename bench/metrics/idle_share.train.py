@@ -1,0 +1,8 @@
+"""Share of the traced window of a ``train`` cell in which no operation ran on
+the device: 1 - busy / window, in percent."""
+
+
+def read(t):
+    if t.traffic["kind"] != "train" or not t.window_s:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
