@@ -320,133 +320,15 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def profile_totals(torch, prof, ops=()) -> tuple:
-    """What ``prof.key_averages()`` gives ``device_profile``, read off the
-    profiler's raw events without building its Python event list (which
-    takes about 1 ms a kernel launch: most of this script's time otherwise).
-    -> ({device event key: [ms, count]} of the events that are not named
-    ranges, {key of ``ops``: the device ms of the kernels its host events and
-    the events nested in them launched}, {key of ``ops``: its device-side
-    span in ms}).  As torch's parser does it: a device event belongs to the
-    host event whose correlation id it links, a device-runtime event runs on
-    that event's thread, host events nest by their intervals on one thread
-    (async ones apart), and a parent whose only child has its name takes the
-    child's kernels and children in its place."""
-    from torch.autograd import DeviceType
-    from torch.autograd.profiler_util import _filter_name, _rewrite_name
-
-    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
-    kernels, spans, own, host, runtime, thread_of, names = {}, {}, {}, [], [], {}, {}
-    for e in prof.profiler.kineto_results.events():
-        raw = e.name()
-        if _filter_name(raw) or getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        name = names.get(raw)
-        if name is None:  # demangled, as the event list names it
-            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
-        sync = not e.is_async() and e.start_thread_id() == e.end_thread_id()
-        link = e.linked_correlation_id()
-        if e.device_type() == cuda:
-            us = (e.end_ns() - e.start_ns()) / 1e3 if sync else 0.0
-            if e.is_user_annotation() or name in ops:
-                spans[name] = spans.get(name, 0.0) + us
-            else:
-                acc = kernels.setdefault(name, [0.0, 0])
-                acc[0] += us
-                acc[1] += 1
-            if link > 0:
-                own[link] = own.get(link, 0.0) + us
-        elif e.device_type() == cpu and sync:
-            row = [e.start_thread_id(), e.start_ns(), -e.end_ns(), name, e.correlation_id()]
-            if link == 0:
-                host.append(row)
-                thread_of[row[4]] = row[0]
-            else:
-                runtime.append((link, row))
-    for link, row in runtime:
-        row[0], row[4] = thread_of.get(link, row[0]), None
-        host.append(row)
-    # the host events' tree, as EventList._populate_cpu_children builds it
-    host.sort(key=lambda r: (r[0], r[1], r[2]))
-    parent, children, stack = [-1] * len(host), [[] for _ in host], []
-    for i, (thread, start, neg_end, _, _) in enumerate(host):
-        while stack:
-            j = stack[-1]
-            if host[j][0] != thread or start >= -host[j][2] or -neg_end > -host[j][2]:
-                stack.pop()
-            else:
-                parent[i] = j
-                children[j].append(i)
-                break
-        stack.append(i)
-    mine = [own.get(r[4], 0.0) if r[4] is not None else 0.0 for r in host]
-    alive, changed = [True] * len(host), True
-    while changed:  # EventList._remove_dup_nodes
-        changed = False
-        for i, row in enumerate(host):
-            j = parent[i]
-            if alive[i] and j >= 0 and host[j][3] == row[3] and len(children[j]) == 1:
-                children[j], mine[j] = children[i], mine[i]
-                for c in children[i]:
-                    parent[c] = j
-                alive[i], changed = False, True
-    # a parent sorts before its children: add each total into its parent's
-    total = mine[:]
-    for i in range(len(host) - 1, -1, -1):
-        if alive[i] and parent[i] >= 0:
-            total[parent[i]] += total[i]
-    op_ms = {}
-    for i, row in enumerate(host):
-        if alive[i] and row[3] in ops:
-            op_ms[row[3]] = op_ms.get(row[3], 0.0) + total[i] / 1e3
-    return ({k: [us / 1e3, n] for k, (us, n) in kernels.items()}, op_ms,
-            {k: us / 1e3 for k, us in spans.items() if k in ops})
-
-
-def profile_totals_torch(torch, prof, ops=()) -> tuple:
-    """``profile_totals`` through ``prof.key_averages()``."""
-    cuda = torch.autograd.DeviceType.CUDA
-    averages = prof.key_averages()
-
-    def annotation(e):  # a named range's device-side span, not a kernel
-        return getattr(e, "is_user_annotation", False) or e.key in ops
-
-    return ({e.key: [e.self_device_time_total / 1e3, e.count] for e in averages
-             if e.device_type == cuda and not annotation(e)},
-            {e.key: e.device_time_total / 1e3 for e in averages
-             if e.key in ops and e.device_type != cuda},
-            {e.key: e.self_device_time_total / 1e3 for e in averages
-             if e.key in ops and e.device_type == cuda})
-
-
-def check_profile_totals(torch, prof, ops, where: str) -> None:
-    """``profile_totals`` must give what ``key_averages()`` gives: the same
-    keys and counts, each time within 1e-6 ms."""
-    fast, slow = profile_totals(torch, prof, ops), profile_totals_torch(torch, prof, ops)
-    kernels = {k: v for k, v in slow[0].items()}
-    ok = (fast[0].keys() == kernels.keys()
-          and all(fast[0][k][1] == kernels[k][1] for k in kernels)
-          and all(abs(fast[0][k][0] - kernels[k][0]) <= 1e-6 for k in kernels)
-          and {k for k, v in fast[1].items()} == {k for k in slow[1]}
-          and all(abs(fast[1][k] - slow[1][k]) <= 1e-6 for k in slow[1])
-          and fast[2].keys() == slow[2].keys()
-          and all(abs(fast[2][k] - slow[2][k]) <= 1e-6 for k in slow[2]))
-    emit("profile_totals", where=where, ops=list(ops), kernel_keys=len(kernels),
-         launches=sum(n for _, n in kernels.values()), equal_to_key_averages=ok,
-         op_ms=fast[1], op_ms_key_averages=slow[1], span_ms=fast[2],
-         span_ms_key_averages=slow[2])
-    require(ok, f"{where}: the profile's totals read off its raw events differ from "
-                f"key_averages(): {fast} vs {slow}")
-
-
-def device_profile(torch, fn, ops=(), check: str = "") -> dict:
+def device_profile(torch, fn, ops=()) -> dict:
     """Run ``fn`` under torch.profiler: wall time, summed kernel time, the
-    device's busy share of the wall time, the kernels that took most, the
+    device's busy share of the wall time, the kernels that took most, and the
     device time of the kernels each CPU op or named range in ``ops``
-    launched through PyTorch (not K1/K2's, launched through ctypes), and the
-    device-side span of each named range (``profile_totals``; with ``check``,
-    a label, held to ``key_averages()`` too)."""
+    launched, the port's own kernels' included (``bench.harness.trace.reduce``
+    over the raw events)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from bench.harness.trace import reduce
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -454,10 +336,9 @@ def device_profile(torch, fn, ops=(), check: str = "") -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    if check:
-        check_profile_totals(torch, prof, ops, check)
-    by_kernel, op_ms, span_ms = profile_totals(torch, prof, ops)
-    kernels = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()), key=lambda k: -k[1])
+    totals = reduce(prof)
+    kernels = sorted(((k, ms, n) for k, (ms, n) in totals["kernels"].items()),
+                     key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
 
     def share(*marks):
@@ -476,8 +357,7 @@ def device_profile(torch, fn, ops=(), check: str = "") -> dict:
            "kernel_launches": sum(n for _, _, n in kernels),
            "top_kernels": [[name[:80], ms, n] for name, ms, n in kernels[:6]]}
     if ops:
-        out["device_ms_by_op"] = {name: op_ms.get(name, 0.0) for name in ops}
-        out["device_span_ms_by_range"] = span_ms
+        out["device_ms_by_op"] = {name: totals["op_ms"].get(name, 0.0) for name in ops}
     return out
 
 
@@ -1250,9 +1130,7 @@ def run_serving_profile(torch, runtime, phase, cfg, batch, prompt):
     launches = {}
     for part, fn in (("prefill", run_prefill), ("4 decode steps", run_decode)):
         runtime.reset_launches()
-        # whisper's profiles are small: hold the fast totals to torch's there
-        prof = device_profile(torch, fn, ops=("aten::mm", "aten::bmm"),
-                              check=f"{phase} {part}" if phase == "profile_audio" else "")
+        prof = device_profile(torch, fn, ops=("aten::mm", "aten::bmm"))
         launches[part] = dict(runtime.LAUNCHES)
         emit(phase, arch=cfg.name, num_layers=cfg.num_layers, part=f"{part} (bf16 copy)",
              launches=launches[part], **prof)
@@ -1489,22 +1367,18 @@ def run_int8_copy_moe(torch, runtime, cfg):
     params = mv.init_working_copy(specs, torch.Generator(device=dev).manual_seed(SEED), dev,
                                   mv.DAEMON_DEFAULT)
     runtime.reset_launches()
-    ranges = ("mla.attention", "moe.experts", "moe.route", "moe.dispatch")
+    ranges = ("attention.forward", "attention.decode", "moe.experts", "moe.route",
+              "moe.dispatch")
     parts = []
     for part, fn in (("prefill (bf16 copy)", lambda: run_prefill(params)),
                      ("4 decode steps (bf16 copy)", lambda: run_decode(params, toks))):
         prof = device_profile(torch, fn, ops=ranges)
-        # a named range's CPU-side device time overcounts here (the four
-        # ranges summed past the device's busy time on an H100)
-        prof.pop("device_ms_by_op")
-        spans, busy = prof["device_span_ms_by_range"], prof["device_busy_ms"]
+        ops, busy = prof["device_ms_by_op"], prof["device_busy_ms"]
         if part.startswith("prefill"):
-            # device-bound (idle < 1 %), one stream: a range's device span,
-            # first to last kernel, is the kernels' time
-            named = {"mla_attention (its einsums, masks and softmax)": spans["mla.attention"],
-                     "expert_products (three bmm and the gate)": spans["moe.experts"],
+            named = {"mla_attention (its einsums, masks and softmax)": ops["attention.forward"],
+                     "expert_products (three bmm and the gate)": ops["moe.experts"],
                      "routing_and_dispatch (router, top-k, cumsum, scatter, gather)":
-                         spans["moe.route"] + spans["moe.dispatch"]}
+                         ops["moe.route"] + ops["moe.dispatch"]}
             named["rest (weight GEMMs, norms, rope, head)"] = busy - sum(named.values())
             prof.update(device_ms_by_part=named,
                         share_of_device_time_by_part={k: v / busy for k, v in named.items()})
@@ -1648,8 +1522,7 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
                               ops=("aten::mm", "aten::bmm", "aten::_softmax",
                                    "aten::_softmax_backward_data", "aten::mul", "aten::cat",
                                    "daemon_step.grads", "daemon_step.fold", "daemon_step.adamw",
-                                   "daemon_step.working_copy"),
-                              check=phase if phase == "train_audio" else "")
+                                   "daemon_step.working_copy"))
         per_step.append(dict(runtime.LAUNCHES))
     finally:
         pipe.close()
@@ -1664,7 +1537,7 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
     UNSHARDED[phase] = {"losses": losses[:TRAIN_STEPS], "step_s": step_s,
                         "peak_memory_gb": peak_gb}
     flop = train_flop(cfg, batch_size, seq)
-    ops, spans = prof.pop("device_ms_by_op"), prof.pop("device_span_ms_by_range")
+    ops = prof.pop("device_ms_by_op")
     breakdown = {
         "device_busy_ms": prof["device_busy_ms"],
         "weight_and_head_gemms_ms (aten::mm)": ops["aten::mm"],
@@ -1675,11 +1548,11 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
         "mul_ms (aten::mul: the scans' combines among them)": ops["aten::mul"],
         "cat_ms (aten::cat: the doubling scan's shifts among them)": ops["aten::cat"],
         "block_quant_ms (K1 + K2)": prof["block_quant_ms"],
-        "fold_aten_ms (the fold's PyTorch ops; K1/K2 apart)": ops["daemon_step.fold"],
+        "fold_ms (K1/K2 included)": ops["daemon_step.fold"],
         "adamw_ms": ops["daemon_step.adamw"],
-        "working_copy_aten_ms (K1/K2 apart)": ops["daemon_step.working_copy"],
-        "device_span_ms (first to last kernel of each range on the device; grads: the "
-        "forward and loss, the backward runs on autograd's thread)": spans,
+        "working_copy_ms (K1/K2 included)": ops["daemon_step.working_copy"],
+        "grads_forward_ms (daemon_step.grads: the forward and loss; the backward runs on "
+        "autograd's thread)": ops["daemon_step.grads"],
         "host_idle_share": prof["device_idle_share"],
     }
     emit(phase, arch=cfg.name, num_layers=cfg.num_layers, batch=batch_size, seq_len=seq,

@@ -43,7 +43,7 @@ def quantize(x: torch.Tensor):
     n_blocks = x.numel() // BLOCK
     if n_blocks:
         lib = runtime.load("block_quant", _SIGNATURES)
-        with torch.cuda.device(x.device):
+        with torch.cuda.device(x.device), runtime.launching("block_quant.quantize"):
             err = lib.bq_quantize(
                 x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(), scales.data_ptr(),
                 n_blocks, torch.cuda.current_stream().cuda_stream,
@@ -78,7 +78,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, dtype=torch.float32) -> to
     n_blocks = q.numel() // BLOCK
     if n_blocks:
         lib = runtime.load("block_quant", _SIGNATURES)
-        with torch.cuda.device(q.device):
+        with torch.cuda.device(q.device), runtime.launching("block_quant.dequantize"):
             err = lib.bq_dequantize(
                 q.data_ptr(), scales.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
                 n_blocks, torch.cuda.current_stream().cuda_stream,

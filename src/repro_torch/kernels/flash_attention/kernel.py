@@ -65,7 +65,7 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     if o.numel() == 0:
         return o
     lib = runtime.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), runtime.launching("flash_attention.forward"):
         err = lib.fa_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),
             b, sq, skv, h, kvh, d,

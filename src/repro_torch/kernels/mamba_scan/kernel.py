@@ -56,7 +56,7 @@ def forward(dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, cmat: torch.T
     if y.numel() == 0:
         return y, h_last
     lib = runtime.load("mamba_scan", _SIGNATURES)
-    with torch.cuda.device(dt.device):
+    with torch.cuda.device(dt.device), runtime.launching("mamba_scan.forward"):
         err = lib.ms_forward(
             dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), x.data_ptr(),
             int(x.dtype == torch.bfloat16), y.data_ptr(), h_last.data_ptr(), b, s, d, n,

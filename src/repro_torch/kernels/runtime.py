@@ -10,6 +10,8 @@ CPU tests import every module, and there is no ``nvcc`` there.
 
 ``LAUNCHES`` counts launches per kernel; a wrapper adds one where it launches
 its kernel and nowhere else, so a run can show which kernels its path took.
+A wrapper calls its launcher inside :func:`launching`, so that the profiler
+links the launch to a host op.
 
 A dry run (``launch/dryrun.py``) traces the path on fake tensors: a wrapper
 given fake CUDA tensors (:func:`dry`) launches nothing, returns empty outputs
@@ -55,6 +57,16 @@ LAUNCHES: Dict[str, int] = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # the op counters (``launch.hlo_cost.OpCounter``) that are active, innermost last
 COUNTERS: List = []
+
+
+def launching(kernel: str):
+    """The host op ``repro_torch::<kernel>`` round a wrapper's call of its
+    launcher.  The profiler links a kernel to the host op its launch runs in:
+    a launch through ``ctypes`` outside any op (``record_function`` ranges
+    are user annotations, which link none) shows its kernel run but not its
+    launch, and the kernel's time reaches no range of the trace.  With no
+    profiler recording, the op costs ~0.5 us."""
+    return torch._C._profiler._RecordFunctionFast(f"repro_torch::{kernel}")
 
 
 def reset_launches() -> None:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import nn, transformer
+from repro_torch.models import nn, spans, transformer
 from repro_torch.models.nn import ParamSpec
 
 
@@ -66,15 +66,18 @@ def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
 
 
 def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                kernel: bool):
+                phase: str):
     """Non-causal attention of the decoder's x over the encoder's K/V: through
-    the flash kernel when ``kernel`` (prefill), else ``nn.attention``
-    (training, decode)."""
+    the flash kernel at ``"prefill"``, else ``nn.attention`` (``"train"``,
+    ``"decode"``)."""
     q = nn.split_last(nn.dense(x, p["wq"]), cfg.num_heads)
-    if kernel:
-        o = flash_attention(q, k, v, causal=False)
+    if phase == "decode":
+        with spans.span("attention.decode"):
+            o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    elif phase == "prefill":
+        o = spans.attention_core(flash_attention, q, k, v, causal=False)
     else:
-        o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+        o = spans.attention_core(nn.attention, q, k, v, causal=False, chunk=cfg.attn_chunk)
     return nn.dense(nn.merge_last(o), p["wo"])
 
 
@@ -115,7 +118,7 @@ def _dec_block(cfg: ModelConfig, p_l, x, enc_out, positions, *, make_cache: bool
     x = x + a
     h = nn.rms_norm(x, p_l["lnx"], cfg.norm_eps)
     ck, cv = _cross_kv(cfg, p_l["cross"], enc_out)
-    x = x + _cross_attn(cfg, p_l["cross"], h, ck, cv, kernel=not training)
+    x = x + _cross_attn(cfg, p_l["cross"], h, ck, cv, phase="train" if training else "prefill")
     h = nn.rms_norm(x, p_l["ln2"], cfg.norm_eps)
     x = x + nn.swiglu(h, p_l["ffn"]["w_gate"], p_l["ffn"]["w_up"], p_l["ffn"]["w_down"])
     cache = None
@@ -156,7 +159,7 @@ def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor, pos: int)
                                            pos)
         x = x + a
         h = nn.rms_norm(x, p_l["lnx"], cfg.norm_eps)
-        x = x + _cross_attn(cfg, p_l["cross"], h, c_l["ck"], c_l["cv"], kernel=False)
+        x = x + _cross_attn(cfg, p_l["cross"], h, c_l["ck"], c_l["cv"], phase="decode")
         h = nn.rms_norm(x, p_l["ln2"], cfg.norm_eps)
         x = x + nn.swiglu(h, p_l["ffn"]["w_gate"], p_l["ffn"]["w_up"], p_l["ffn"]["w_down"])
     return nn.rms_norm(x, params["ln_f"], cfg.norm_eps), caches

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import mamba, nn
+from repro_torch.models import mamba, nn, spans
 from repro_torch.models.nn import ParamSpec
 
 
@@ -93,9 +93,9 @@ def apply_shared_block(cfg: ModelConfig, p, x: torch.Tensor, emb: torch.Tensor, 
     hh = nn.rms_norm(torch.cat([x, emb], dim=-1), p["ln1"], cfg.norm_eps)
     q, k, v = _shared_qkv(cfg, p, hh, inv, positions)
     if training:
-        o = nn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+        o = spans.attention_core(nn.attention, q, k, v, causal=True, chunk=cfg.attn_chunk)
     else:
-        o = flash_attention(q, k, v, causal=True, window=0)
+        o = spans.attention_core(flash_attention, q, k, v, causal=True, window=0)
     x = _shared_out(cfg, p, x, emb, o)
     cache = {"k": k, "v": v} if make_cache else None
     return x, cache
@@ -110,7 +110,8 @@ def apply_shared_block_decode(cfg: ModelConfig, p, x, emb, inv: int, cache, pos:
     k, v = cache["k"], cache["v"]
     nn.set_index(k, 1, pos, k_new[:, 0])
     nn.set_index(v, 1, pos, v_new[:, 0])
-    o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk, kv_len=pos + 1)
+    with spans.span("attention.decode"):
+        o = nn.attention(q, k, v, causal=False, chunk=cfg.attn_chunk, kv_len=pos + 1)
     return _shared_out(cfg, p, x, emb, o), {"k": k, "v": v}
 
 

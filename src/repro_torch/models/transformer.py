@@ -13,8 +13,8 @@ KV cache with plain products.  The decode step writes the new key and value
 into the cache buffers in place (JAX returns updated copies; the serving loop
 donates them).  MLA (q/k heads of 192, v heads of 128, which the flash kernel
 does not take) attends through ``nn.attention`` at prefill too, as JAX does,
-and decodes in the compressed latent with its up-projections absorbed; its
-attention runs in a named range, ``mla.attention``, for the profile.
+and decodes in the compressed latent with its up-projections absorbed.
+Every attention core runs in a range of ``models.spans`` for the profile.
 """
 from __future__ import annotations
 
@@ -24,12 +24,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import moe as moe_lib
-from repro_torch.models import nn
+from repro_torch.models import nn, spans
 from repro_torch.models.nn import ParamSpec, logical_constraint
 
 PyTree = Any
@@ -176,9 +175,10 @@ def gqa_attn_forward(
     q, k, v = gqa_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attn_kind == "swa" else 0
     if training:
-        o = nn.attention(q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk)
+        o = spans.attention_core(nn.attention, q, k, v, causal=causal, window=window,
+                                 chunk=cfg.attn_chunk)
     else:
-        o = flash_attention(q, k, v, causal=causal, window=window)
+        o = spans.attention_core(flash_attention, q, k, v, causal=causal, window=window)
     out = nn.dense(nn.merge_last(o), p["wo"])
     cache = None
     if make_cache:
@@ -213,16 +213,17 @@ def gqa_attn_decode(
     nn.set_index(k, 1, slot, k_new[:, 0])
     nn.set_index(v, 1, slot, v_new[:, 0])
 
-    if cfg.attn_kind == "swa":
-        # ring buffer: slot i holds absolute position pos - ((pos - i) mod w);
-        # everything resident is inside the window by construction.
-        kv_positions = pos - torch.remainder(pos - torch.arange(w, device=x.device), w)
-        valid = kv_positions >= 0
-        o = _decode_attn_abs(cfg, q, k, v, kv_positions, valid)
-    else:
-        o = nn.attention(
-            q, k, v, causal=False, window=0, chunk=cfg.attn_chunk, kv_len=pos + 1
-        )
+    with spans.span("attention.decode"):
+        if cfg.attn_kind == "swa":
+            # ring buffer: slot i holds absolute position pos - ((pos - i) mod w);
+            # everything resident is inside the window by construction.
+            kv_positions = pos - torch.remainder(pos - torch.arange(w, device=x.device), w)
+            valid = kv_positions >= 0
+            o = _decode_attn_abs(cfg, q, k, v, kv_positions, valid)
+        else:
+            o = nn.attention(
+                q, k, v, causal=False, window=0, chunk=cfg.attn_chunk, kv_len=pos + 1
+            )
     out = nn.dense(nn.merge_last(o), p["wo"])
     return out, {"k": k, "v": v}
 
@@ -275,8 +276,7 @@ def mla_attn_forward(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tens
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], dim=-1)
     q = logical_constraint(q, "act_batch", None, "heads", None)
     k = logical_constraint(k, "act_batch", None, "heads", None)
-    with record_function("mla.attention"):
-        o = nn.attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    o = spans.attention_core(nn.attention, q, k, v, causal=True, chunk=cfg.attn_chunk)
     out = nn.dense(nn.merge_last(o), p["wo"])
     cache = {"ckv": ckv, "krope": k_rope} if make_cache else None
     return out, cache
@@ -298,7 +298,7 @@ def mla_attn_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: Dict[str, torch
 
     w_uk = nn.split_last(p["w_uk"], h).to(x.dtype)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)  # absorb the k up-projection
-    with record_function("mla.attention"):
+    with spans.span("attention.decode"):
         ckv32 = ckv.to(torch.float32)
         scores = torch.einsum("bhr,bsr->bhs", q_abs.to(torch.float32), ckv32)
         scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32),
