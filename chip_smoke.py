@@ -23,6 +23,14 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               K1/K2 also at deepseek-v2-lite's 15 page-class
               shapes at full depth, three of them 4.80e9-element expert
               stacks held on row slices across element 2^31;
+ 3b. train_attention K3's training instance and K5 (the training
+              backward) at danube's training layer (2, 4096, 32/8 heads of
+              80, window 4096) and minicpm-2b's (36/36 of 64): o, lse, dq, dk
+              and dv against autograd of nn.attention in f32, then forward,
+              backward and forward + backward timed beside their bound, the
+              plain path and SDPA's forward + backward (a yardstick only);
+              the ptxas registers and spills of the training instances,
+              K5's and K3's serving instances;
   4. capture  for each Hopper launch in repro_torch.capture's catalog (K3's
               prefill and decode, K4 and K1 at the JAX catalog's shapes): the
               kernel at that shape against its plain version, the shim's
@@ -93,7 +101,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               depth, batch 2 x 4096 from the token pipeline, under
               DAEMON_AGGRESSIVE: 4 timed steps and one profiled step; K1 and
               K2 must launch 18 times a step (11 folded gradients, 7 working-
-              copy weights), K3 and K4 never; falling losses, a live residual,
+              copy weights), K3's training instance twice a layer (forward
+              and its recompute) and K5's two kernels once, K3's serving
+              kernel and K4 never; falling losses, a live residual,
               a working copy equal to the plain int8 round trip, and the fold
               of one more step's gradients equal to the plain fold;
  19. sharded  the same model and steps on a mesh: one NCCL process group of
@@ -143,7 +153,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               without zstandard raising before it writes;
  26. train    train("h2o-danube-1.8b", reduced=False, steps=3,
               global_batch=2, seq_len=4096, movement="daemon"), which runs
-              DAEMON_DEFAULT and so launches no kernel;
+              DAEMON_DEFAULT and so launches no K1/K2, only training
+              attention's kernels (its working copy is bf16);
  27. autograd_guard  K3's and K4's wrappers refuse a call that autograd would
               have to differentiate (the kernels are forward-only);
  28. reference the reduced models (danube, qwen3, stablelm, minicpm,
@@ -781,6 +792,169 @@ def check_flash_attention(torch, cfg):
             "wgmma_ptxas": wgmma_ptxas, **summary}
 
 
+def train_attention_layers(cfg) -> int:
+    """The layers whose training attention goes through K3's training instance
+    and K5 on one card (``flash_attention.ops.trains``, bf16): every
+    ``gqa_attn_forward`` of a head_dim with a training instance: the dense
+    families' layers, whisper's encoder and decoder self-attention; not MLA,
+    the hybrid's shared block or the SSM layers, which attend otherwise."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    if cfg.head_dim not in kernel.TRAIN_HEAD_DIMS or cfg.attn_kind == "mla":
+        return 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + cfg.dec_layers
+    return 0 if cfg.family in ("ssm", "hybrid") else cfg.num_layers
+
+
+def train_attention_want(cfg, steps: int = 1) -> dict:
+    """Training attention's launches over ``steps`` steps: the training forward
+    twice a layer (every family here rematerialises each layer, so its
+    forward runs again in backward), each K5 kernel once."""
+    n = train_attention_layers(cfg) * steps
+    return {"flash_attention.train_forward": 2 * n, "flash_attention_bwd.dq": n,
+            "flash_attention_bwd.dkdv": n}
+
+
+def check_train_attention(torch, cfg):
+    """Training attention at danube's training layer, (B, S, H, KVH, D) = (2,
+    4096, 32, 8, 80) with window 4096: K3's training instance and K5 (dq,
+    then dk/dv) against autograd of the plain path in f32 (o at |err| <=
+    1e-5 + 1e-2|ref|, dv at that + 2^-16 P^T|dO|, dq and dk at 1e-2|ref| +
+    2^-8 max|ref|, as tests/test_torch_flash_attention_train.py has them, and
+    each no further from it in relative L2 than the plain path's own bf16
+    autograd; lse within 1e-4), then timed with CUDA events: the forward, the
+    backward's two kernels, forward + backward through autograd, beside the
+    bound (the tensor-core products as the kernels issue them at 989 TFLOP/s),
+    the plain path (``nn.attention`` forward + backward on the bf16 inputs)
+    and, as a yardstick the port never calls, scaled_dot_product_attention's
+    forward + backward (the backend it picks, named); the same timings at
+    minicpm-2b's shape (36/36 heads of 64).  The ptxas registers and spills
+    of the training instances, of K5's and of K3's serving instances."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.models import nn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ptxas = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        ptxas.update(ptxas_per_kernel(runtime.library_path(name).with_suffix(".log").read_text()))
+    regs = {"training": {k: v for k, v in ptxas.items()
+                         if k.startswith(("flash_train_forward_kernel", "flash_backward"))},
+            "serving": {k: v for k, v in ptxas.items() if k.startswith("flash_forward_wgmma")}}
+    emit("train_attention", ptxas=regs)
+    backends = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
+    out = {}
+    for arch_cfg in (cfg, get_config(TIED_ARCH)):
+        b, s, h, kvh, d = BATCH, TRAIN_SEQ, arch_cfg.num_heads, arch_cfg.num_kv_heads, \
+            arch_cfg.head_dim
+        window = arch_cfg.window if arch_cfg.attn_kind == "swa" else 0
+        q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                       for n in (h, kvh, kvh, h))
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention_train(*xs, causal=True, window=window)
+        o.backward(do)
+        got = [o.detach().float()] + [x.grad.float() for x in xs]
+        errs, runs = {}, []
+        for dtype, grad in ((torch.float32, do), (torch.bfloat16, do), (torch.float32, do.abs())):
+            ys = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+            oy = nn.attention(*ys, causal=True, window=window, chunk=1024)
+            oy.backward(grad.to(dtype))
+            runs.append([oy.detach().float()] + [y.grad.float() for y in ys])
+            del ys, oy
+        (want, plain, terms), dv_terms = runs, runs[2][3]  # P^T |dO|
+        del terms, runs
+        for name, x, r, pb in zip(("o", "dq", "dk", "dv"), got, want, plain):
+            err = (x - r).abs()
+            allowed = 1e-2 * r.abs() + (2.0 ** -8 * float(r.abs().max())
+                                        if name in ("dq", "dk") else 1e-5)
+            if name == "dv":
+                allowed = allowed + 2.0 ** -16 * dv_terms
+            rel, plain_rel = float(err.norm() / r.norm()), float((pb - r).norm() / r.norm())
+            excess = float((err - allowed).max())
+            errs[name] = {"max_abs_err": float(err.max()), "excess_over_tol": excess,
+                          "rel_l2": rel, "plain_bf16_rel_l2": plain_rel}
+            require(excess <= 0 and rel <= plain_rel,
+                    f"train_attention {arch_cfg.name} {name}: excess {excess}, relative L2 "
+                    f"{rel} against the plain bf16 path's {plain_rel}")
+        del got, want, plain, dv_terms, xs, o
+        o, lse = kernel.train_forward(q, k, v, causal=True, window=window)
+        lse_err = max(float((lse[:, :, s0:s0 + 1024] - torch.logsumexp(
+            (q[:, s0:s0 + 1024].float().permute(0, 2, 1, 3)
+             @ torch.repeat_interleave(k.float(), h // kvh, 2).permute(0, 2, 3, 1)
+             / math.sqrt(d)).masked_fill(
+                torch.arange(s, device=dev)[None] > torch.arange(s0, s0 + 1024, device=dev)[:, None],
+                -math.inf), -1)).abs().max()) for s0 in range(0, s, 1024))
+        require(lse_err <= 1e-4, f"train_attention {arch_cfg.name}: lse off by {lse_err}")
+
+        def fwd():
+            return kernel.train_forward(q, k, v, causal=True, window=window)
+
+        dq, delta = kernel.backward_dq(q, k, v, o, lse, do, causal=True, window=window)
+
+        def bwd_dq():
+            return kernel.backward_dq(q, k, v, o, lse, do, causal=True, window=window)
+
+        def bwd_dkdv():
+            return kernel.backward_dkdv(q, k, v, do, lse, delta, causal=True, window=window)
+
+        rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def kernels():
+            return torch.autograd.grad(ops.flash_attention_train(rq, rk, rv, causal=True,
+                                                                 window=window), (rq, rk, rv), do)
+
+        def plain_path():
+            return torch.autograd.grad(nn.attention(rq, rk, rv, causal=True, window=window,
+                                                    chunk=1024), (rq, rk, rv), do)
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        lib_kw = {"is_causal": True, "enable_gqa": kvh != h}
+        library_backend = backends.get(int(torch._fused_sdp_choice(qt, kt, vt, **lib_kw)),
+                                       "unknown")
+
+        def sdpa():  # yardstick only, never called by the port
+            return torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
+                                       (qt, kt, vt), dot)
+
+        runtime.reset_launches()
+        # kernels and library in turns (kernels, library, library, kernels)
+        t_a, lib_a, lib_b, t_b = (time_ms(torch, fn) for fn in (kernels, sdpa, sdpa, kernels))
+        fwd_ms, dq_ms, dkdv_ms = (time_ms(torch, fn) for fn in (fwd, bwd_dq, bwd_dkdv))
+        plain_ms = time_ms(torch, plain_path, reps=3, warmup=1)
+        cost = {name: ops.train_cost(name, b=b, sq=s, skv=s, h=h, kvh=kvh, d=d, causal=True,
+                                     window=window)
+                for name in ("flash_attention.train_forward", "flash_attention_bwd.dq",
+                             "flash_attention_bwd.dkdv")}
+        bound = {name: max(f / BF16_FLOP_PER_S, n / HBM_BYTES_PER_S) * 1e3
+                 for name, (f, n) in cost.items()}
+        ms = min(t_a, t_b)
+        row = {"shape": [b, s, h, kvh, d, True, window], "errors": errs, "lse_max_abs_err": lse_err,
+               "forward_ms": fwd_ms, "backward_dq_ms": dq_ms, "backward_dkdv_ms": dkdv_ms,
+               "backward_ms": dq_ms + dkdv_ms, "ms": ms, "ms_runs": [t_a, t_b],
+               "bound_ms": sum(bound.values()), "bound_ms_by_launch": bound, "bound_by": "operations",
+               "flop_by_launch": {n: c[0] for n, c in cost.items()},
+               "share_of_bound": sum(bound.values()) / ms, "plain_ms": plain_ms,
+               "library": "scaled_dot_product_attention(is_causal) forward + backward",
+               "library_backend": library_backend, "library_ms": min(lib_a, lib_b),
+               "library_ms_runs": [lib_a, lib_b],
+               "per": "forward + backward of one layer through autograd (ms); forward_ms and "
+                      "backward_*_ms one launch each"}
+        emit("train_attention", arch=arch_cfg.name, **row, nvidia_smi=nvidia_smi())
+        out.setdefault("summary", row)
+        if arch_cfg is not cfg:
+            out.setdefault("other_shapes", []).append({"arch": arch_cfg.name, **row})
+        del q, k, v, do, o, lse, dq, delta, rq, rk, rv, qt, kt, vt, dot
+        free_memory(torch)
+    return {**out.pop("summary"), **out, "ptxas": regs}
+
+
 def reduced_attn_case():
     """K3's case in the reduced danube that the reference phase runs on the
     card: (B, Sq, Skv, H, KVH, D, causal, window), head_dim 16."""
@@ -1354,8 +1528,8 @@ def run_int8_copy_moe(torch, runtime, cfg):
         toks.append(tok)
     torch.cuda.synchronize()
     int8_logits, launches = out.pop("logits"), dict(runtime.LAUNCHES)
-    want = {"block_quant.quantize": paged, "block_quant.dequantize": paged,
-            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    want = {**dict.fromkeys(runtime.LAUNCHES, 0), "block_quant.quantize": paged,
+            "block_quant.dequantize": paged}
     require(paged == 15 and launches == want,
             f"int8_copy_moe: launches {launches}, not {want} ({paged} page-class weights)")
     require(all(bool(torch.isfinite(lg).all()) for lg in int8_logits),
@@ -1459,7 +1633,8 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
     the stub frontend's zero frames for the enc-dec, 4 timed steps then one
     profiled.
     ``moves`` is (folded gradients, page-class weights) a step: K1 and K2
-    must each launch their sum a step, K3 and K4 never.
+    must each launch their sum a step, K3's serving kernel and K4 never, and
+    the training attention kernels as ``train_attention_want`` counts them.
 
     The hashed tokens are random and each step's batch is new, so at vocab
     32000 two effective updates (step 1's lr is 0) move a new batch's loss
@@ -1490,8 +1665,8 @@ def run_train_step(torch, runtime, cfg, phase, moves, batch_size=BATCH, seq=TRAI
                                     global_batch=batch_size, seed=SEED))
     folded = sum(is_foldable(tuple(p.shape)) for p in nn.tree_leaves(params))
     copied = sum(is_page_class(tuple(p.shape)) for p in nn.tree_leaves(params))
-    want = {"block_quant.quantize": folded + copied, "block_quant.dequantize": folded + copied,
-            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    want = {**dict.fromkeys(runtime.LAUNCHES, 0), "block_quant.quantize": folded + copied,
+            "block_quant.dequantize": folded + copied, **train_attention_want(cfg)}
     require((folded, copied) == moves,
             f"{phase}: {folded} folded + {copied} copied tensors, not {moves[0]} + {moves[1]}")
 
@@ -1876,8 +2051,9 @@ def run_sharded(torch, runtime, cfg):
     bits are reported, not required)."""
     # DTensor warns on each redistribution over several mesh dims
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
-    want = {"block_quant.quantize": 18, "block_quant.dequantize": 18,
-            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    # DTensors attend through nn.attention: no training attention kernel
+    want = {**dict.fromkeys(runtime.LAUNCHES, 0), "block_quant.quantize": 18,
+            "block_quant.dequantize": 18}
     total = dict.fromkeys(runtime.LAUNCHES, 0)
     with one_rank_group(torch, "sharded"):
         st = sharded_steps(torch, runtime, cfg, BATCH, TRAIN_SEQ)
@@ -1954,8 +2130,8 @@ def run_sharded_families(torch, runtime, ssm_cfg, hybrid_cfg, audio_cfg):
     ref = UNSHARDED["train_audio"]
     losses = st["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
-    want = {"block_quant.quantize": 42, "block_quant.dequantize": 42,
-            "flash_attention.forward": 0, "mamba_scan.forward": 0}
+    want = {**dict.fromkeys(runtime.LAUNCHES, 0), "block_quant.quantize": 42,
+            "block_quant.dequantize": 42}
     step_s = statistics.median(st["times"][1:])
     emit("sharded", arch=audio_cfg.name, mesh=list(SHARDED_MESH), batch=AUDIO_BATCH,
          seq_len=AUDIO_TRAIN_SEQ, movement="daemon (DAEMON_AGGRESSIVE)", steps=SHARDED_STEPS,
@@ -2091,7 +2267,9 @@ def run_checkpoint(torch, cfg):
 
 def run_train(torch, runtime):
     """The training entry point itself at full width; it runs DAEMON_DEFAULT, as
-    JAX's train() does, so no kernel launches."""
+    JAX's train() does, so K1 and K2 never launch; its bf16 working copy takes
+    training attention through K3's training instance and K5."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import train
 
     runtime.reset_launches()
@@ -2107,13 +2285,15 @@ def run_train(torch, runtime):
     launches = dict(runtime.LAUNCHES)
     require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
             f"train: losses {losses}")
-    require(not any(launches.values()), f"train: DAEMON_DEFAULT launched kernels: {launches}")
+    want = {**dict.fromkeys(runtime.LAUNCHES, 0), **train_attention_want(get_config(ARCH), 3)}
+    require(launches == want, f"train: DAEMON_DEFAULT launched {launches}, not {want}")
     emit("train", arch=ARCH, batch=BATCH, seq_len=TRAIN_SEQ, steps=3, losses=losses,
          wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=launches, log=log.getvalue().splitlines(),
          note="train() runs DAEMON_DEFAULT (bf16 gradients, bf16 working copy), as JAX's "
-              "does: no kernel launches; log holds its per-step lines (s/step is the mean "
-              "over the steps so far, the first step's first-call set-up included)")
+              "does: no K1/K2 launch, training attention on K3's training instance and K5; "
+              "log holds its per-step lines (s/step is the mean over the steps so far, the "
+              "first step's first-call set-up included)")
     del params, state
     free_memory(torch)
     return launches
@@ -2369,7 +2549,9 @@ def run_dryrun(torch, per_phase):
     whisper's, K4 once a layer at falcon's, none at deepseek's (MLA) or in
     minicpm's baseline training step, and K1/K2 those of one danube step on
     one card (none under DAEMON_DEFAULT, as the train phase's train() shows;
-    11 folded + 7 copied under DAEMON_AGGRESSIVE, the train_step phase's).
+    11 folded + 7 copied under DAEMON_AGGRESSIVE, the train_step phase's);
+    the training attention kernels none (the mesh's DTensors attend through
+    nn.attention, where one card's plain tensors take them).
     -> the children's real launches (all 0)."""
     from repro_torch.configs import get_config
     from repro_torch.models import hybrid
@@ -2379,7 +2561,8 @@ def run_dryrun(torch, per_phase):
     audio = get_config(AUDIO_ARCH)
     # a step's real launches: the train phase's train() took 3 DAEMON_DEFAULT
     # steps, the train_step phase TRAIN_STEPS + 1 DAEMON_AGGRESSIVE ones
-    default_step = {k: v // 3 for k, v in per_phase["train"].items() if v}
+    default_step = {k: v // 3 for k, v in per_phase["train"].items()
+                    if v and k.startswith("block_quant")}
     step_k1 = per_phase["train_step"]["block_quant.quantize"] // (TRAIN_STEPS + 1)
     cells = [
         (ARCH, "train_4k", "daemon", default_step),
@@ -2511,6 +2694,7 @@ def main() -> int:
     bq_moe = check_block_quant_moe(torch, moe_cfg)
     k3 = check_flash_attention(torch, cfg)
     torch.cuda.empty_cache()
+    k5 = check_train_attention(torch, cfg)
     k4 = check_mamba_scan(torch, ssm_cfg)
     torch.cuda.empty_cache()
     run_capture(torch)
@@ -2595,10 +2779,10 @@ def main() -> int:
     src = "src/repro_torch/kernels"
 
     def launches(name):
-        return sum(p[name] for p in per_phase.values())
+        return sum(p.get(name, 0) for p in per_phase.values())
 
     def by_phase(name):
-        return {ph: p[name] for ph, p in per_phase.items()}
+        return {ph: p.get(name, 0) for ph, p in per_phase.items()}
 
     kernels = [
         {"name": "block_quant.quantize (K1)", "route": "cuda",
@@ -2650,6 +2834,25 @@ def main() -> int:
                 "zamba2's, whisper's (encoder, decoder, cross), internvl2's, qwen3's, "
                 "stablelm's and minicpm's serving "
                 "shapes, one launch each"},
+        {"name": "flash_attention.train_forward + flash_attention_bwd.dq, .dkdv (K3's "
+                 "training instance and K5)", "route": "cuda",
+         "source": f"{src}/flash_attention/csrc/flash_attention.cu, "
+                   f"{src}/flash_attention/csrc/flash_attention_bwd.cu",
+         "replaces": "none: the training path's nn.attention (the Pallas kernel is forward-only)",
+         "launches": launches("flash_attention.train_forward"),
+         "launches_dq": launches("flash_attention_bwd.dq"),
+         "launches_dkdv": launches("flash_attention_bwd.dkdv"),
+         "launches_by_phase": by_phase("flash_attention.train_forward"),
+         "errors": k5["errors"], "lse_max_abs_err": k5["lse_max_abs_err"],
+         "tol": "o |err| <= 1e-5 + 1e-2|ref|, dv + 2^-16 P^T|dO|; dq, dk 1e-2|ref| + 2^-8 "
+                "max|ref|; relative L2 <= the plain bf16 path's (against f32 autograd)",
+         "ms": k5["ms"], "forward_ms": k5["forward_ms"], "backward_ms": k5["backward_ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"], "library_backend": k5["library_backend"],
+         "share_of_bound": k5["share_of_bound"], "ptxas": k5["ptxas"],
+         "other_shapes": k5["other_shapes"],
+         "per": f"forward + backward of one layer at {k5['shape']}, bf16; other_shapes: "
+                "minicpm-2b's training layer"},
         {"name": "mamba_scan.forward (K4)", "route": "cuda",
          "source": f"{src}/mamba_scan/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:27",

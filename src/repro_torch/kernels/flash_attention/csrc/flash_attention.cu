@@ -70,6 +70,15 @@
 //   * What bounds it on the card (PERF.md): the CUDA-core work per score
 //     (FFMA, ex2, max, sum, the hi/lo split) and its latency with two
 //     consumer warpgroups, more than the tensor cores.
+//   * Training (flash_train_forward_kernel, not on the serving path): the
+//     same body, selected at compile time, that also stores each row's
+//     log-sum-exp lse = m / sqrt(D) + ln(l) as f32 (B, H, Sq) (+inf for a row
+//     that sees no key), which the backward, K5 (flash_attention_bwd.cu),
+//     recomputes P from.  Instances for D = 64, 80, 128; the serving
+//     instances (flash_forward_wgmma_kernel) compile as before.  Its bound
+//     at danube's training layer (B=2, S=4096, H=32, KVH=8, D=80, window
+//     4096): S(S+1)/2 = 8.39 M pairs per (b, h), three products (S, P_hi V,
+//     P_lo V) of 2*D FLOP a pair: 2.58e11 FLOP, 0.26 ms at 989 TFLOP/s.
 //
 // f32 (not on the serving path; the parity cases hold it at 2e-5):
 //   flash_forward_f32_kernel, on the CUDA cores.  The tensor cores have no
@@ -305,6 +314,7 @@ struct TcParams {
   int Sq, Skv, H, KVH;
   int causal, window;
   float scale_log2;                 // log2(e) / sqrt(D)
+  float* lse;                       // contiguous (B, H, Sq) f32; the training instances only
 };
 
 // Byte offsets in dynamic shared memory: the q tile, the K and V stages
@@ -519,9 +529,10 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_forward_wgmma_kernel(const __grid_constant__ TcParams p) {
+// The body of the bf16 kernels; kLse (the training instances) also stores
+// each row's log-sum-exp.
+template <int D, bool kLse>
+__device__ __forceinline__ void flash_forward_wgmma(const TcParams& p) {
   static_assert(D % 16 == 0 && D <= 256, "D must be a multiple of 16, at most 256");
   using L = TcSmem<D>;
   constexpr int kSlabQ = kTcBQ * 16, kSlabKV = kTcBK * 16;  // bytes per 8-column slab
@@ -727,7 +738,26 @@ flash_forward_wgmma_kernel(const __grid_constant__ TcParams p) {
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * c) =
           __floats2bfloat162_rn(o[4 * n + 2 * r] / denom, o[4 * n + 2 * r + 1] / denom);
+    if constexpr (kLse) {
+      // ln(sum_k exp(s_k / sqrt(D))) = (m c + log2(l)) ln(2), c = log2(e) / sqrt(D)
+      if (c == 0)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qpos] =
+            l[r] == 0.f ? __int_as_float(0x7f800000)
+                        : (m[r] * p.scale_log2 + log2f(l[r])) * 0.6931471805599453f;
+    }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_forward_wgmma_kernel(const __grid_constant__ TcParams p) {
+  flash_forward_wgmma<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_train_forward_kernel(const __grid_constant__ TcParams p) {
+  flash_forward_wgmma<D, true>(p);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -773,22 +803,41 @@ bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads, int
 // The bf16 launch's grid: one CTA per (128-row q tile, head, batch row).
 dim3 tc_grid(int Sq, int H, int B) { return dim3((Sq + kTcBQ - 1) / kTcBQ, H, B); }
 
+// The bf16 kernels' parameters (lse null: the serving instances write none).
+bool tc_params(TcParams* p, const Params& a, int D, float* lse) {
+  if (!encode_map(&p->q_map, a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, kTcBQ) ||
+      !encode_map(&p->k_map, a.k, a.B, a.Skv, a.KVH, D, a.k_sb, a.k_ss, a.k_sh, kTcBK) ||
+      !encode_map(&p->v_map, a.v, a.B, a.Skv, a.KVH, D, a.v_sb, a.v_ss, a.v_sh, kTcBK))
+    return false;
+  p->o = static_cast<__nv_bfloat16*>(a.o);
+  p->Sq = a.Sq; p->Skv = a.Skv; p->H = a.H; p->KVH = a.KVH;
+  p->causal = a.causal; p->window = a.window;
+  p->scale_log2 = a.scale * 1.4426950408889634f;
+  p->lse = lse;
+  return true;
+}
+
 template <int D>
 cudaError_t launch_bf16(const Params& a, cudaStream_t stream) {
   TcParams p;
-  if (!encode_map(&p.q_map, a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, kTcBQ) ||
-      !encode_map(&p.k_map, a.k, a.B, a.Skv, a.KVH, D, a.k_sb, a.k_ss, a.k_sh, kTcBK) ||
-      !encode_map(&p.v_map, a.v, a.B, a.Skv, a.KVH, D, a.v_sb, a.v_ss, a.v_sh, kTcBK))
-    return cudaErrorInvalidValue;
-  p.o = static_cast<__nv_bfloat16*>(a.o);
-  p.Sq = a.Sq; p.Skv = a.Skv; p.H = a.H; p.KVH = a.KVH;
-  p.causal = a.causal; p.window = a.window;
-  p.scale_log2 = a.scale * 1.4426950408889634f;
+  if (!tc_params(&p, a, D, nullptr)) return cudaErrorInvalidValue;
   const int smem = TcSmem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_forward_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   flash_forward_wgmma_kernel<D><<<tc_grid(a.Sq, a.H, a.B), kTcThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_train(const Params& a, float* lse, cudaStream_t stream) {
+  TcParams p;
+  if (!tc_params(&p, a, D, lse)) return cudaErrorInvalidValue;
+  const int smem = TcSmem<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_train_forward_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_train_forward_kernel<D><<<tc_grid(a.Sq, a.H, a.B), kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -860,6 +909,28 @@ extern "C" int fa_forward_bf16_launch(int B, int Sq, int H, int D, int* out) {
     case 80: return static_cast<int>(launch_config_bf16<80>(B, Sq, H, out));
     case 128: return static_cast<int>(launch_config_bf16<128>(B, Sq, H, out));
     case 160: return static_cast<int>(launch_config_bf16<160>(B, Sq, H, out));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The training forward: fa_forward's bf16 path (q, k, v and o as there), and
+// lse, contiguous (B, H, Sq) f32, each row's log-sum-exp of its scaled scores.
+// Returns cudaErrorInvalidValue for a head_dim without a training instance,
+// for Skv == 0, or for a tensor the TMA cannot describe.
+extern "C" int fa_train_forward(const void* q, const void* k, const void* v, void* o, float* lse,
+                                int B, int Sq, int Skv, int H, int KVH, int D,
+                                long long q_sb, long long q_ss, long long q_sh,
+                                long long k_sb, long long k_ss, long long k_sh,
+                                long long v_sb, long long v_ss, long long v_sh,
+                                int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Params p{q, k, v, o, B, Sq, Skv, H, KVH, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                 v_sb, v_ss, v_sh, causal, window, scale};
+  if (Skv == 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64: return static_cast<int>(launch_train<64>(p, lse, st));
+    case 80: return static_cast<int>(launch_train<80>(p, lse, st));
+    case 128: return static_cast<int>(launch_train<128>(p, lse, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,13 @@
-"""Public flash-attention entry point (port of
+"""Public flash-attention entry points (port of
 ``repro.kernels.flash_attention.ops``): the Hopper kernel K3 for CUDA
 tensors, which raises on what it does not take; the plain version in
 ``ref.py`` for CPU tensors, which the caller asked for.  A fake CUDA tensor
-(a dry run) gets an empty output and its launch reported with :func:`cost`."""
+(a dry run) gets an empty output and its launch reported with :func:`cost`.
+
+Training on the card has its own entry, :func:`flash_attention_train`: K3's
+training instance forward (o and each row's log-sum-exp) and K5's backward,
+as one autograd function.  :func:`trains` says which inputs take it; the
+others attend through ``models.nn.attention``."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,6 +42,110 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         runtime.forward_only("flash_attention (K3)", q, k, v)
         return kernel.forward(q, k, v, causal=causal, window=window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def trains(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether training attention on these inputs goes through the kernels
+    (:func:`flash_attention_train`): plain CUDA tensors (a dry run's fake
+    ones too), not DTensors, all bfloat16, one head_dim that the training
+    instances have.  Everything else (the CPU, DTensors, f32, other head
+    dims, MLA's q/k 192 against v 128) attends through ``nn.attention``."""
+    from repro_torch.models.nn import is_dtensor
+
+    ts = (q, k, v)
+    return (not any(is_dtensor(t) for t in ts)
+            and all(t.is_cuda and t.dtype == torch.bfloat16 for t in ts)
+            and q.shape[-1] == k.shape[-1] == v.shape[-1]
+            and q.shape[-1] in kernel.TRAIN_HEAD_DIMS)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Training attention on the card: q (B, Sq, H, D), k, v (B, Skv, KVH,
+    D), bf16 CUDA tensors -> o (B, Sq, H, D) bf16, differentiable.  The
+    forward is K3's training instance (it saves q, k, v, o and lse); the
+    backward is K5 (dq, then dk and dv).  Masking as :func:`flash_attention`:
+    causal (``kpos <= qpos``) and ``kpos > qpos - window`` when
+    ``window > 0``."""
+    return _FlashTrain.apply(q, k, v, causal, window)
+
+
+class _FlashTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if runtime.dry(q, k, v):
+            _dry_launches(q, k, ("flash_attention.train_forward",), causal, window)
+            b, sq, h, _ = q.shape
+            o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        else:
+            o, lse = kernel.train_forward(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, delta = _backward_dq(q, k, v, o, lse, do, ctx.causal, ctx.window)
+        dk, dv = _backward_dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _backward_dq(q, k, v, o, lse, do, causal: bool, window: int):
+    """(dq, delta): K5's first kernel, or on a dry run its launch reported."""
+    if runtime.dry(q, k, v):
+        _dry_launches(q, k, ("flash_attention_bwd.dq",), causal, window)
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty(lse.shape, dtype=torch.float32, device=q.device))
+    return kernel.backward_dq(q, k, v, o, lse, do, causal=causal, window=window)
+
+
+def _backward_dkdv(q, k, v, do, lse, delta, causal: bool, window: int):
+    """(dk, dv): K5's second kernel, or on a dry run its launch reported."""
+    if runtime.dry(q, k, v):
+        _dry_launches(q, k, ("flash_attention_bwd.dkdv",), causal, window)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        return dk, torch.empty_like(dk)
+    return kernel.backward_dkdv(q, k, v, do, lse, delta, causal=causal, window=window)
+
+
+def _dry_launches(q, k, names, causal: bool, window: int) -> None:
+    b, sq, h, d = q.shape
+    if q.numel() == 0:
+        return
+    for name in names:
+        flops, n_bytes = train_cost(name, b=b, sq=sq, skv=k.shape[1], h=h, kvh=k.shape[2],
+                                    d=d, causal=causal, window=window)
+        runtime.dry_launch(name, flops=flops, bytes=n_bytes)
+
+
+# tensor-core products of 2·D FLOP a kept (q, k) pair and q head that each
+# training launch issues, P and dS counted twice (hi + lo); and the (B, S,
+# heads, D) bf16 tensors it reads and writes (q-shaped, k-shaped), and the
+# (B, H, Sq) f32 rows (lse, delta)
+_TRAIN_WORK = {
+    # S = Q K^T, O += P_hi V + P_lo V; reads q, k, v, writes o and lse
+    "flash_attention.train_forward": (3, 2, 2, 1),
+    # S, dP = dO V^T, dQ += dS_hi K + dS_lo K; reads q, k, v, o, dO, lse,
+    # writes dq and delta
+    "flash_attention_bwd.dq": (4, 4, 2, 2),
+    # S^T, dP^T, dV += P^T_hi dO + P^T_lo dO, dK += dS^T_hi Q + dS^T_lo Q;
+    # reads q, k, v, dO, lse and delta, writes dk and dv
+    "flash_attention_bwd.dkdv": (6, 2, 4, 2),
+}
+
+
+def train_cost(name: str, *, b: int, sq: int, skv: int, h: int, kvh: int, d: int,
+               causal: bool = True, window: int = 0):
+    """(FLOP, bytes) of one training launch ``name`` (a ``runtime.LAUNCHES``
+    key): the tensor-core products as the kernel issues them, over the kept
+    (q, k) pairs, and each tensor it reads or writes counted once."""
+    products, q_like, k_like, rows = _TRAIN_WORK[name]
+    flops = products * 2 * d * b * h * band_pairs(sq, skv, causal, window)
+    n_bytes = 2 * (q_like * b * sq * h * d + k_like * b * skv * kvh * d) + 4 * rows * b * h * sq
+    return flops, n_bytes
 
 
 def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel family is one ``<name>/csrc/<name>.cu`` file with a plain C
-interface.  ``nvcc`` compiles it for ``sm_90a`` into ``build/repro_torch/`` at
-the root of the checkout the first time one of its kernels launches (or all at
+Each library is one ``.cu`` file under a kernel family's ``csrc/``
+(``SOURCES``) with a plain C interface.  ``nvcc`` compiles it for ``sm_90a``
+into ``build/repro_torch/`` at the root of the checkout the first time one of
+its kernels launches (or all at
 once, one ``nvcc`` per source in parallel, through :func:`build`), and
 ``ctypes`` loads it.  The library's file name carries a hash of the source and
 the flags, so an edited source is rebuilt.  Nothing here runs at import: the
@@ -37,6 +38,7 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "block_quant": _KERNELS / "block_quant" / "csrc" / "block_quant.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _KERNELS / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "mamba_scan": _KERNELS / "mamba_scan" / "csrc" / "mamba_scan.cu",
 }
 # IEEE division and accurate expf: no --use_fast_math (block_quant's codes
@@ -51,6 +53,9 @@ LAUNCHES: Dict[str, int] = {
     "block_quant.quantize": 0,
     "block_quant.dequantize": 0,
     "flash_attention.forward": 0,
+    "flash_attention.train_forward": 0,
+    "flash_attention_bwd.dq": 0,
+    "flash_attention_bwd.dkdv": 0,
     "mamba_scan.forward": 0,
 }
 
@@ -165,6 +170,16 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def load_together(signatures: Dict[str, Dict[str, list]]) -> List[ctypes.CDLL]:
+    """:func:`load` of each library in ``signatures`` (name -> its functions'
+    signatures); those not loaded yet are built first, in parallel.  Once
+    all are loaded it costs a dict lookup each."""
+    missing = [name for name in signatures if name not in _LIBS]
+    if missing:
+        build(missing)
+    return [load(name, sigs) for name, sigs in signatures.items()]
 
 
 def forward_only(kernel: str, *inputs) -> None:

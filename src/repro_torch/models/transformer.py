@@ -6,9 +6,10 @@ segments.
 Layers form *segments* of uniform structure whose parameters are stacked on a
 leading ``layers`` axis, as in the JAX package; where JAX scans a segment, the
 port loops over its layers.  Prefill attention goes through the flash kernel
-(``kernels.flash_attention``); training attends through ``nn.attention`` as
-JAX does (the kernel, like the Pallas one, is forward-only), with each layer
-rematerialised in backward per ``cfg.remat``; decode attends over the (ring)
+(``kernels.flash_attention``); training attends through K3's training
+instance and its hand-written backward K5 on plain bf16 CUDA tensors of a
+head_dim they have, else through ``nn.attention`` as JAX does, with each
+layer rematerialised in backward per ``cfg.remat``; decode attends over the (ring)
 KV cache with plain products.  The decode step writes the new key and value
 into the cache buffers in place (JAX returns updated copies; the serving loop
 donates them).  MLA (q/k heads of 192, v heads of 128, which the flash kernel
@@ -26,7 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_train, trains
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import nn, spans
 from repro_torch.models.nn import ParamSpec, logical_constraint
@@ -169,12 +170,16 @@ def gqa_attn_forward(
     causal: bool = True,
     training: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full-sequence attention: through the flash kernel at prefill, through
-    ``nn.attention`` in training (JAX's attention there; the kernel has no
-    backward)."""
+    """Full-sequence attention: through the flash kernel K3 at prefill; in
+    training, through K3's training instance and its backward K5 where the
+    inputs suit them (``flash_attention.ops.trains``: plain bf16 CUDA tensors
+    of a head_dim they have), else through ``nn.attention`` (JAX's attention
+    there)."""
     q, k, v = gqa_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    if training:
+    if training and trains(q, k, v):
+        o = spans.attention_core(flash_attention_train, q, k, v, causal=causal, window=window)
+    elif training:
         o = spans.attention_core(nn.attention, q, k, v, causal=causal, window=window,
                                  chunk=cfg.attn_chunk)
     else:

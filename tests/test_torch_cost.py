@@ -270,6 +270,23 @@ def _dry_case(name):
         return (lambda: fa.flash_attention(q, k, k, causal=True, window=16)), \
             [((2, 40, 4, 16), torch.bfloat16)], \
             fa.cost(b=2, sq=40, skv=40, h=4, kvh=2, d=16, causal=True, window=16)
+    if name.startswith(("flash_attention.train", "flash_attention_bwd")):
+        q = torch.empty(2, 40, 4, 64, dtype=torch.bfloat16, device=d)
+        k = torch.empty(2, 40, 2, 64, dtype=torch.bfloat16, device=d)
+        lse = torch.empty(2, 4, 40, device=d)
+        cost = fa.train_cost(name, b=2, sq=40, skv=40, h=4, kvh=2, d=64, causal=True, window=16)
+        calls = {
+            "flash_attention.train_forward": (
+                lambda: fa.flash_attention_train(q, k, k, causal=True, window=16),
+                [((2, 40, 4, 64), torch.bfloat16)]),
+            "flash_attention_bwd.dq": (
+                lambda: fa._backward_dq(q, k, k, q, lse, q, True, 16),
+                [((2, 40, 4, 64), torch.bfloat16), ((2, 4, 40), torch.float32)]),
+            "flash_attention_bwd.dkdv": (
+                lambda: fa._backward_dkdv(q, k, k, q, lse, lse, True, 16),
+                [((2, 40, 2, 64), torch.bfloat16)] * 2),
+        }
+        return (*calls[name], cost)
     dt = torch.empty(2, 30, 64, device=d)
     a = torch.empty(64, 8, device=d)
     bm = torch.empty(2, 30, 8, device=d)
@@ -300,6 +317,8 @@ def test_kernel_refuses_fake_tensors(name):
     with FakeTensorMode():
         x = torch.empty(4, 256, device="cuda")
         q = torch.empty(2, 8, 2, 16, dtype=torch.bfloat16, device="cuda")
+        qt = torch.empty(2, 8, 2, 64, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(2, 2, 8, device="cuda")
         f = torch.empty(1, 8, 64, device="cuda")
         a = torch.empty(64, 4, device="cuda")
         bc = torch.empty(1, 8, 4, device="cuda")
@@ -309,6 +328,12 @@ def test_kernel_refuses_fake_tensors(name):
                 torch.empty(4, 256, dtype=torch.int8, device="cuda"), torch.empty(4, 2,
                                                                                   device="cuda")),
             "flash_attention.forward": lambda: fa_kernel.forward(q, q, q, causal=True, window=0),
+            "flash_attention.train_forward": lambda: fa_kernel.train_forward(
+                qt, qt, qt, causal=True, window=0),
+            "flash_attention_bwd.dq": lambda: fa_kernel.backward_dq(
+                qt, qt, qt, qt, lse, qt, causal=True, window=0),
+            "flash_attention_bwd.dkdv": lambda: fa_kernel.backward_dkdv(
+                qt, qt, qt, qt, lse, lse, causal=True, window=0),
             "mamba_scan.forward": lambda: ms_kernel.forward(f, a, bc, bc, f),
         }
         with pytest.raises(RuntimeError, match="fake tensors have no data"):

@@ -69,15 +69,21 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 def test_every_kernel_source_is_in_the_checkout_with_a_counter():
     """``chip_smoke.py`` builds every entry of ``runtime.SOURCES`` from the
     checkout: each is a ``.cu`` file under the package with a plain C
-    interface, and each launch counter names one of them."""
+    interface, and each launch counter names one of them.  Each source note
+    names the Pallas kernel it replaces, or says it replaces none (K5, the
+    training backward: the Pallas kernel has no backward)."""
     pytest.importorskip("torch", reason="the PyTorch port needs torch (pyproject.toml)")
     from repro_torch.kernels import runtime
 
-    assert set(runtime.SOURCES) == {"block_quant", "flash_attention", "mamba_scan"}
+    assert set(runtime.SOURCES) == {"block_quant", "flash_attention", "flash_attention_bwd",
+                                    "mamba_scan"}
     for name, path in runtime.SOURCES.items():
         assert path.is_file() and path.suffix == ".cu" and PORT in path.parents, name
         text = path.read_text()
         assert 'extern "C"' in text and "repro_error_string" in text, name
-        assert "Replaces: src/repro/kernels/" in text, name
+        if name == "flash_attention_bwd":
+            assert "Replaces: no Pallas kernel." in text, name
+        else:
+            assert "Replaces: src/repro/kernels/" in text, name
     assert {k.split(".")[0] for k in runtime.LAUNCHES} == set(runtime.SOURCES)
     assert "mamba_scan.forward" in runtime.LAUNCHES

@@ -225,7 +225,8 @@ def test_every_launch_runs_inside_launching(family):
     kernel, not a ``*_launch`` query) sits in ``runtime.launching`` of a
     kernel ``LAUNCHES`` counts."""
     module = importlib.import_module(f"repro_torch.kernels.{family}.kernel")
-    names = {fn for fn in module._SIGNATURES if not fn.endswith("_launch")}
+    names = {fn for sigs in (module._SIGNATURES, getattr(module, "_BWD_SIGNATURES", {}))
+             for fn in sigs if not fn.endswith("_launch")}
     tree = ast.parse(inspect.getsource(module))
     calls = _launcher_calls(tree, names)
     inside = []
